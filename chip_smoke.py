@@ -1,0 +1,424 @@
+#!/usr/bin/env python3
+"""Run the PyTorch port of SubStrat on one CUDA card and check it.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero and prints no result:
+
+1. The card (``nvidia-smi`` name and power limit), torch and CUDA versions,
+   the build of the CUDA kernels from ``src/repro_torch/csrc``, and a probe of
+   the machine (host loop speed, wall time per small launch, device copy rate,
+   clocks) so that runs on different machines can be told apart.
+2. The masked-histogram kernel against its plain version, on the inputs the
+   main path gives it (paper dataset D1: 100 candidates of 322 rows x 23
+   columns, folded to (322, 2300), B = 256): exact with uniform weights; the
+   padding edges; fractional weights within rtol = atol = 1e-5.  Timed beside
+   its plain version, one ``torch.bincount`` call and its bound.
+3. The fused Gen-DST kernel against its plain version at (100, 23, 256) and at
+   ragged P: counts bit-equal, fitness within 1e-6.  Timed the same way.
+4. The small-input check: Gen-DST on the card (kernels) and on the CPU (plain
+   versions) from the same draws must find the same subset.  Then a full-size
+   search under ``torch.cuda.set_sync_debug_mode("error")``: no operation in
+   the generation loop may wait for the host.
+5. The main path: ``execute(plan("gen_dst"), ...)`` on D1 at full scale with
+   the paper's defaults.  Both kernels' launch counters are zeroed just before
+   and read just after, and must have risen.  The reported DST fitness must
+   match a plain recomputation within 1e-6, and the test accuracy must be a
+   finite number in [0, 1].
+6. Where the time goes: the Gen-DST phase alone and the whole ``execute``
+   again under ``torch.profiler``: the device-busy share of the wall time and
+   the kernels with the most device time.
+
+Then it prints the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and,
+last, ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM published memory rate
+FP32_OPS_PER_S = 67e12         # H100 SXM published float32 rate (no tensor cores)
+FP64_OPS_PER_S = 34e12         # H100 SXM published float64 rate (no tensor cores)
+HIST_TOL = 1e-5                # fractional-weight histogram: rtol = atol
+FIT_TOL = 1e-6                 # fused kernel fitness, and DST fitness recomputation
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def smi_state() -> str:
+    """The card's clocks, temperature, power draw and active clock-event
+    reasons, to tell one machine's state from another's; never fatal."""
+    for reasons in ("clocks_event_reasons.active", "clocks_throttle_reasons.active"):
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,clocks.mem,temperature.gpu,"
+             f"power.draw,{reasons}", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60)
+        if out.returncode == 0:
+            return out.stdout.strip().splitlines()[0]
+    return "not available"
+
+
+def machine_probe(torch) -> None:
+    """Three yardsticks of the machine, printed beside the results: the host's
+    Python speed, the wall time per small launch (what bounds the main path),
+    and the device's copy rate."""
+    t0 = time.perf_counter()
+    acc = 0
+    for i in range(2_000_000):
+        acc += i
+    host_s = time.perf_counter() - t0
+    x = torch.zeros(1, device="cuda")
+    for _ in range(100):
+        x.add_(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5000):
+        x.add_(1)
+    torch.cuda.synchronize()
+    launch_us = (time.perf_counter() - t0) / 5000 * 1e6
+    a = torch.empty(1 << 28, device="cuda")                 # 1 GiB
+    b = torch.empty_like(a)
+    b.copy_(a)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(10):
+        b.copy_(a)
+    end.record()
+    end.synchronize()
+    copy_tbs = 2 * a.numel() * 4 * 10 / (start.elapsed_time(end) / 1e3) / 1e12
+    del a, b
+    print(f"machine: host loop of 2e6 adds {host_s:.4f} s, {launch_us:.3f} us per small "
+          f"launch, device copy {copy_tbs:.3f} TB/s (read + write)")
+    print(f"  clocks: {smi_state()}")
+
+
+def time_ms(torch, fn, label: str, iters: int = 100, repeats: int = 5, warmup: int = 10) -> float:
+    """Device time of one call: CUDA events around ``iters`` back-to-back
+    calls, ``repeats`` times; prints the spread and returns the median."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    times.sort()
+    print(f"  {label}: median {times[len(times) // 2]:.5f} ms, min {times[0]:.5f}, "
+          f"max {times[-1]:.5f} ({repeats} x {iters} calls)")
+    return times[len(times) // 2]
+
+
+def dev_us(e) -> float:
+    """Device microseconds of a profiler event (the attribute's name changed
+    across torch versions)."""
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
+def kernel_device_ms(torch, fn, kernel: str, calls: int = 50):
+    """Device time per launch of the CUDA kernel named ``kernel`` over
+    ``calls`` calls of ``fn``, from torch.profiler; None if none was seen.
+    Unlike ``time_ms`` it leaves out the host's time between launches."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if kernel in e.key]
+    count = sum(e.count for e in events)
+    return sum(dev_us(e) for e in events) / count / 1e3 if count else None
+
+
+def profile_share(torch, run) -> None:
+    """Run ``run()`` under torch.profiler; print the device-busy share of the
+    wall time and the kernels that took the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    events = [e for e in prof.key_averages()
+              if getattr(getattr(e, "device_type", None), "name", "") == "CUDA"]
+    busy_us = sum(dev_us(e) for e in events)
+    if busy_us <= 0:
+        print("  profile: no device time recorded (device busy share not measured)")
+        return
+    print(f"  profile: wall {wall:.3f} s (profiler on), device busy {busy_us / 1e6:.4f} s, "
+          f"busy share {busy_us / 1e6 / wall:.4f}")
+    for e in sorted(events, key=lambda e: -dev_us(e))[:8]:
+        print(f"    {dev_us(e) / 1e3:10.3f} ms  {e.count:7d} x  {e.key[:90]}")
+
+
+def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float) -> tuple[float, str]:
+    """The least time for the work: bytes over the memory rate or operations
+    over the peak rate of their type, whichever is larger."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def main() -> None:
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a CUDA card")
+    sys.path.insert(0, str(ROOT / "src"))
+    try:
+        from repro_torch import kernels as K
+        from repro_torch.core.gen_dst import GenDSTConfig, TorchDraws, gen_dst
+        from repro_torch.core.measures import factorize, full_column_entropy, subset_entropy
+        from repro_torch.core.plan import execute, plan
+        from repro_torch.data.tabular import PAPER_DATASETS, make_dataset, train_test_split
+        from repro_torch.device import make_generator, resolve_device
+        from repro_torch.kernels import _build
+        from repro_torch.kernels.entropy.kernel import masked_histogram_cuda
+        from repro_torch.kernels.entropy.ref import masked_histogram_ref
+        from repro_torch.kernels.gen_dst.kernel import fused_delta_fitness_cuda
+        from repro_torch.kernels.gen_dst.ref import fused_delta_fitness_ref
+    except ImportError as exc:
+        fail(f"cannot import the port from {ROOT / 'src'}: {exc}")
+    import numpy as np
+
+    # --- 1. the card and the build -------------------------------------------
+    smi = smi_line()
+    dev = resolve_device("cuda")
+    print(f"card: {smi}")
+    print(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
+          f"cuda {torch.version.cuda}  device {torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    try:
+        _build.library()
+    except RuntimeError as exc:
+        fail(f"kernel build: {exc}")
+    print(f"build_s {time.perf_counter() - t0:.3f}")
+    machine_probe(torch)
+    for line in _build.build_log.splitlines():
+        if "registers" in line or "spill" in line or line.startswith("=="):
+            print(f"  {line.strip()}")
+
+    # the main path's data: D1 at full scale, train split, factorized
+    X, y = make_dataset(PAPER_DATASETS["D1"], scale=1.0)
+    X_tr, y_tr, X_te, y_te = train_test_split(X, y)
+    coded = factorize(X_tr, y_tr, device=dev)
+    N, M = coded.codes.shape
+    B = coded.max_bins
+    cfg = GenDSTConfig()
+    n, m = round(N ** 0.5), round(0.25 * M)
+    P = cfg.phi
+    print(f"D1: train rows {N}, columns {M} (target incl.), B {B}, n {n}, m {m}, P {P}")
+    gen = make_generator(1234, dev)
+    rows = torch.randint(0, N, (P, n), generator=gen, device=dev)
+    sub = coded.codes[rows]                                       # (P, n, M)
+    flat = sub.permute(1, 0, 2).reshape(n, P * M).contiguous()    # (n, P*M)
+    kernels = []
+
+    # --- 2. masked histogram -------------------------------------------------
+    ones = torch.ones(n, dtype=torch.float32, device=dev)
+    h_k = masked_histogram_cuda(flat, ones, B)
+    h_r = masked_histogram_ref(flat, ones, B)
+    torch.cuda.synchronize()
+    if not torch.equal(h_k, h_r):
+        fail(f"masked_histogram: not exact at the main shape, max err "
+             f"{(h_k - h_r).abs().max().item()}")
+    hist_err = (h_k - h_r).abs().max().item()
+    edge_shapes = [(5, 3, 8, None), (300, 13, 16, None), (200, 4, 64, 11), (7, 9, 32, 5),
+                   (n, P * M, B, None)]
+    for Ne, Me, Be, code_max in edge_shapes:
+        rng = np.random.default_rng(Ne * 7 + Me)
+        codes_e = torch.as_tensor(rng.integers(0, code_max or Be, (Ne, Me)),
+                                  dtype=torch.int32, device=dev)
+        for kind in ("uniform", "fractional"):
+            w = (torch.ones(Ne, device=dev) if kind == "uniform" else
+                 torch.as_tensor(rng.random(Ne), dtype=torch.float32, device=dev))
+            hk, hr = masked_histogram_cuda(codes_e, w, Be), masked_histogram_ref(codes_e, w, Be)
+            torch.cuda.synchronize()
+            if kind == "uniform" and not torch.equal(hk, hr):
+                fail(f"masked_histogram: not exact at {(Ne, Me, Be)}")
+            if not torch.allclose(hk, hr, rtol=HIST_TOL, atol=HIST_TOL):
+                fail(f"masked_histogram: {kind} weights off at {(Ne, Me, Be)}: "
+                     f"{(hk - hr).abs().max().item()}")
+            if code_max is not None and hk[:, code_max:].any():
+                fail(f"masked_histogram: padding bins not zero at {(Ne, Me, Be)}")
+            print(f"masked_histogram {kind:10s} N={Ne} M={Me} B={Be}: "
+                  f"max_abs_err {(hk - hr).abs().max().item():.3e}")
+    col_off = (torch.arange(P * M, device=dev) * B)[None, :]
+    flat_idx = (flat.long() + col_off).reshape(-1)
+    w_rep = ones[:, None].expand(n, P * M).reshape(-1).contiguous()
+    ms_k = time_ms(torch, lambda: masked_histogram_cuda(flat, ones, B), "kernel")
+    ms_p = time_ms(torch, lambda: masked_histogram_ref(flat, ones, B), "plain")
+    ms_l = time_ms(torch, lambda: torch.bincount(flat_idx, weights=w_rep, minlength=P * M * B),
+                   "bincount")
+    # codes and weights read once, counts written once; one float32 add per cell
+    b_ms, b_by = bound_ms(n * P * M * 4 + n * 4 + P * M * B * 4, n * P * M, FP32_OPS_PER_S)
+    print(f"masked_histogram (n={n}, P*M={P * M}, B={B}): kernel {ms_k:.4f} ms, plain "
+          f"{ms_p:.4f} ms, bincount {ms_l:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    dev_ms = kernel_device_ms(torch, lambda: masked_histogram_cuda(flat, ones, B),
+                              "masked_histogram_kernel")
+    print(f"  masked_histogram_kernel device time per launch (profiler): {dev_ms} ms")
+    kernels.append({"name": "masked_histogram", "route": "cuda",
+                    "source": "src/repro_torch/csrc/masked_histogram.cu",
+                    "replaces": "src/repro/kernels/entropy/kernel.py:45",
+                    "launches": None, "max_abs_err": hist_err, "ms": ms_k, "plain_ms": ms_p,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": ms_l})
+
+    # --- 3. fused delta + fitness --------------------------------------------
+    counts_main = h_r.reshape(P, M, B)
+    f_ref = full_column_entropy(coded.codes, B).mean().reshape(1)
+    fit_err = 0.0
+    for Pe in (P, 37, 1):
+        rng = np.random.default_rng(Pe)
+        counts = counts_main[:Pe].contiguous()
+        old = sub[:Pe, 0, :].contiguous()                  # evict a real member row
+        new = coded.codes[torch.as_tensor(rng.integers(0, N, Pe), device=dev)].contiguous()
+        cm = torch.as_tensor(rng.random((Pe, M)) < m / M, device=dev)
+        cm[:, coded.target_col] = True
+        for applied_kind in ("mutation", "zero"):
+            applied = (torch.as_tensor(rng.random(Pe) < 0.5, device=dev)
+                       if applied_kind == "mutation" else torch.zeros(Pe, device=dev))
+            ck, fk = fused_delta_fitness_cuda(counts.clone(), old, new, applied, cm, f_ref)
+            cr, fr = fused_delta_fitness_ref(counts.clone(), old, new, applied, cm, f_ref)
+            torch.cuda.synchronize()
+            if not torch.equal(ck, cr):
+                fail(f"fused_delta_fitness: counts not bit-equal at P={Pe} ({applied_kind})")
+            err = (fk - fr).abs().max().item()
+            if not err <= FIT_TOL:
+                fail(f"fused_delta_fitness: fitness off by {err} at P={Pe} ({applied_kind})")
+            if Pe == P:
+                fit_err = max(fit_err, err)
+            print(f"fused_delta_fitness P={Pe} {applied_kind}: counts bit-equal, "
+                  f"fitness max_abs_err {err:.3e}")
+    # the main path passes a zero delta on every generation (cross_every = 1)
+    counts_t = counts_main.contiguous().clone()
+    old, new = sub[:, 0, :].contiguous(), sub[:, 1, :].contiguous()
+    cm = torch.zeros((P, M), dtype=torch.bool, device=dev)
+    cm[:, :m] = True
+    zero = torch.zeros(P, device=dev)
+    ms_k = time_ms(torch, lambda: fused_delta_fitness_cuda(counts_t, old, new, zero, cm, f_ref),
+                   "kernel")
+    ms_p = time_ms(torch, lambda: fused_delta_fitness_ref(counts_t, old, new, zero, cm, f_ref),
+                   "plain")
+    # the counts read once; the codes, delta, mask and f_ref read once; the
+    # fitness written once; two bins stored per column of each candidate whose
+    # delta is applied (none here).  Per bin a float64 add to the column total,
+    # and per nonzero bin a divide, a log2, a multiply and an add.
+    n_applied = int((zero != 0).sum())
+    nonzero_bins = int((counts_t > 0).sum())
+    b_ms, b_by = bound_ms(P * M * B * 4 + 2 * P * M * 4 + P * 4 + P * M + 4 + P * 4
+                          + 2 * n_applied * M * 4,
+                          P * M * B + 4 * nonzero_bins, FP64_OPS_PER_S)
+    print(f"fused_delta_fitness (P={P}, M={M}, B={B}): kernel {ms_k:.4f} ms, plain "
+          f"{ms_p:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    dev_ms = kernel_device_ms(
+        torch, lambda: fused_delta_fitness_cuda(counts_t, old, new, zero, cm, f_ref),
+        "fused_delta_fitness_kernel")
+    print(f"  fused_delta_fitness_kernel device time per launch (profiler): {dev_ms} ms")
+    kernels.append({"name": "fused_delta_fitness", "route": "cuda",
+                    "source": "src/repro_torch/csrc/fused_delta_fitness.cu",
+                    "replaces": "src/repro/kernels/gen_dst/kernel.py:77",
+                    "launches": None, "max_abs_err": fit_err, "ms": ms_k, "plain_ms": ms_p,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+
+    # --- 4. small input: kernels on the card = plain versions on the CPU -----
+    rng = np.random.default_rng(0)
+    Xs = np.column_stack([rng.integers(0, k, 800) for k in (3, 5, 17, 2, 40, 7)]).astype(float)
+    ys = rng.integers(0, 2, 800).astype(float)
+    small_cfg = GenDSTConfig(psi=6, phi=16)
+    res = {}
+    for d in ("cuda", "cpu"):
+        cs = factorize(Xs, ys, device=d)
+        draws = TorchDraws(make_generator(7), d)       # the same CPU draws for both
+        r = gen_dst(None, cs, 28, 3, small_cfg, device=d, draws=draws)
+        res[d] = (r.row_idx.cpu(), r.col_mask.cpu(), float(r.fitness))
+    if not (torch.equal(res["cuda"][0], res["cpu"][0])
+            and torch.equal(res["cuda"][1], res["cpu"][1])
+            and abs(res["cuda"][2] - res["cpu"][2]) <= FIT_TOL):
+        fail(f"small Gen-DST: card and CPU disagree (fitness {res['cuda'][2]} vs "
+             f"{res['cpu'][2]})")
+    print(f"small Gen-DST: card = CPU (fitness {res['cuda'][2]:.7f})")
+
+    # the generation loop stays on the device: a full-size search under
+    # sync-debug "error" raises at the first operation that waits for the host
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gen_dst(make_generator(3, dev), coded, device=dev)
+    except RuntimeError as exc:
+        fail(f"Gen-DST synchronised with the host: {exc}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print("full-size Gen-DST: no host sync inside the search")
+
+    # --- 5. the main path ------------------------------------------------------
+    print(f"  clocks before the main path: {smi_state()}")
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = execute(plan("gen_dst"), X_tr, y_tr, X_test=X_te, y_test=y_te, seed=0,
+                     device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = K.launch_counts()
+    print(f"  clocks after the main path: {smi_state()}")
+    print(f"main path: execute(plan('gen_dst')) on D1 ({len(y_tr)} train rows): "
+          f"{wall:.3f} s")
+    for k, v in result.times.items():
+        print(f"  {k} {v:.4f}")
+    print(f"  launches {launches}")
+    print(f"  intermediate {result.intermediate.spec.family} val_acc "
+          f"{result.intermediate.val_acc:.4f}; final {result.final.spec} "
+          f"val_acc {result.final.val_acc:.4f} test_acc {result.final.test_acc}")
+    for entry in kernels:
+        entry["launches"] = launches[entry["name"]]
+        if entry["launches"] <= 0:
+            fail(f"{entry['name']} was not launched on the main path")
+    rows_t = torch.as_tensor(result.row_idx, device=dev)
+    mask_t = torch.zeros(M, dtype=torch.bool, device=dev)
+    mask_t[torch.as_tensor(result.col_idx, device=dev)] = True
+    mask_t[coded.target_col] = True
+    f_plain = -abs(subset_entropy(coded.codes, rows_t, mask_t, B).item() - f_ref.item())
+    print(f"  dst_fitness {result.dst_fitness:.8f}, plain recomputation {f_plain:.8f}")
+    if not (math.isfinite(result.dst_fitness)
+            and abs(result.dst_fitness - f_plain) <= FIT_TOL):
+        fail("DST fitness does not match its plain recomputation")
+    acc = result.final.test_acc
+    if not (acc is not None and math.isfinite(acc) and 0.0 <= acc <= 1.0):
+        fail(f"test accuracy {acc} is not a finite number in [0, 1]")
+    if len(result.row_idx) != n or int(mask_t.sum()) != m:
+        fail(f"subset shape {len(result.row_idx)} x {int(mask_t.sum())}, expected {n} x {m}")
+
+    # --- 6. where the main path's time goes (a second run, profiled) ---------
+    print("profiled main path (Gen-DST phase alone, then the whole execute):")
+    profile_share(torch, lambda: gen_dst(make_generator(0, dev), coded, device=dev))
+    profile_share(torch, lambda: execute(plan("gen_dst"), X_tr, y_tr, seed=0, device="cuda"))
+
+    print(json.dumps({"kernels": kernels}))
+    print(smi_line())
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,58 @@
+"""Carry state across from the JAX package, through numpy.
+
+The port imports nothing of the JAX package; a caller who holds the
+reference's results as numpy arrays (``np.asarray(jax_array)``) turns them
+into the port's tensors here:
+
+* ``coded_from_numpy`` — a factorized dataset (the fields of the
+  reference's ``CodedDataset``);
+* ``params_from_numpy`` — AutoML params of one family, as the reference's
+  trees hold them: ``logreg``/``linear_svm`` ``{"w", "b"}``, ``mlp``
+  ``{"layers": [{"w", "b"}, ...]}``, ``gnb`` ``{"mean", "var", "prior"}``,
+  ``centroid`` ``{"cent"}``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.measures import CodedDataset
+from .device import DeviceLike, resolve_device
+
+__all__ = ["coded_from_numpy", "params_from_numpy"]
+
+_PARAM_KEYS = {
+    "logreg": ("w", "b"),
+    "linear_svm": ("w", "b"),
+    "gnb": ("mean", "var", "prior"),
+    "centroid": ("cent",),
+}
+
+
+def _tensor(x, dtype, device) -> torch.Tensor:
+    return torch.as_tensor(np.array(x, dtype=dtype), device=device)   # a writable copy
+
+
+def coded_from_numpy(codes, values, n_bins, target_col: int, max_bins: int,
+                     device: DeviceLike = None) -> CodedDataset:
+    """A ``CodedDataset`` on ``device`` from numpy arrays."""
+    dev = resolve_device(device)
+    return CodedDataset(codes=_tensor(codes, np.int32, dev),
+                        values=_tensor(values, np.float32, dev),
+                        n_bins=_tensor(n_bins, np.int32, dev),
+                        target_col=int(target_col), max_bins=int(max_bins))
+
+
+def params_from_numpy(family: str, tree, device: DeviceLike = None) -> dict:
+    """The port's params of ``family`` (float32 tensors on ``device``) from
+    the reference's param tree of numpy arrays."""
+    dev = resolve_device(device)
+    if family == "mlp":
+        return {"layers": [{"w": _tensor(lyr["w"], np.float32, dev),
+                            "b": _tensor(lyr["b"], np.float32, dev)}
+                           for lyr in tree["layers"]]}
+    try:
+        keys = _PARAM_KEYS[family]
+    except KeyError:
+        raise ValueError(f"unknown model family {family!r}") from None
+    return {k: _tensor(tree[k], np.float32, dev) for k in keys}

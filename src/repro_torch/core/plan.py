@@ -1,0 +1,157 @@
+"""The declarative plan-based pipeline API (DESIGN.md §12), in PyTorch.
+
+The port of the JAX package's ``core/plan.py``::
+
+    from repro_torch.core.plan import plan, execute
+
+    p = plan("gen_dst", cfg=GenDSTConfig(psi=20),
+             sub_automl=AutoMLConfig(n_trials=12))
+    result = execute(p, X, y, seed=0)            # on CUDA unless device="cpu"
+
+A ``Plan`` names a SubsetStrategy (``core/strategies.py``) and the subset
+shape and the two AutoML pass budgets.
+``execute()`` runs the whole pipeline: factorize → strategy → subset →
+sub-AutoML → restricted fine-tune.  The service-tier flags of the
+reference's ``Plan`` (continuous batching, warm starts, the DST-cache
+identity) come with the service port.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import time
+from typing import Callable, List, Optional, Tuple, Union
+
+import numpy as np
+
+from ..automl.engine import AutoMLConfig, automl_fit
+from ..device import DeviceLike, make_generator, resolve_device
+from ..obs import trace as _trace
+from .measures import CodedDataset, factorize
+from .strategies import SubsetResult, get_strategy, run_strategy
+
+__all__ = ["Plan", "plan", "execute", "plan_from_config"]
+
+
+def _norm_opts(opts) -> Tuple[Tuple[str, object], ...]:
+    """Normalize strategy options to sorted hashable items."""
+    return tuple(sorted(dict(opts).items()))
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """A declarative description of one SubStrat run (see the JAX
+    package's ``Plan`` for each field's meaning)."""
+    strategy: Union[str, Callable] = "gen_dst"
+    strategy_opts: Tuple[Tuple[str, object], ...] = ()
+    n: Optional[int] = None
+    m: Optional[int] = None
+    fine_tune: bool = True
+    sub_automl: AutoMLConfig = AutoMLConfig()
+    ft_automl: AutoMLConfig = AutoMLConfig(n_trials=6, rungs=(60,))
+
+    def __post_init__(self):
+        if not callable(self.strategy):
+            get_strategy(self.strategy)        # fail fast, listing names
+        object.__setattr__(self, "strategy_opts", _norm_opts(self.strategy_opts))
+
+
+def plan(
+    strategy: Union[str, Callable] = "gen_dst",
+    *,
+    n: Optional[int] = None,
+    m: Optional[int] = None,
+    fine_tune: bool = True,
+    sub_automl: Optional[AutoMLConfig] = None,
+    ft_automl: Optional[AutoMLConfig] = None,
+    **strategy_opts,
+) -> Plan:
+    """Build a ``Plan``; extra keyword arguments become strategy options."""
+    kw = {}
+    if sub_automl is not None:
+        kw["sub_automl"] = sub_automl
+    if ft_automl is not None:
+        kw["ft_automl"] = ft_automl
+    return Plan(strategy=strategy, strategy_opts=_norm_opts(strategy_opts),
+                n=n, m=m, fine_tune=fine_tune, **kw)
+
+
+def plan_from_config(config) -> Plan:
+    """Convert a ``SubStratConfig`` into the equivalent ``Plan``."""
+    return Plan(
+        strategy="gen_dst", strategy_opts=(("cfg", config.resolved_gen()),),
+        n=config.n, m=config.m, fine_tune=config.fine_tune,
+        sub_automl=config.sub_automl, ft_automl=config.ft_automl,
+    )
+
+
+def execute(
+    p: Plan,
+    X: np.ndarray,
+    y: np.ndarray,
+    *,
+    seed: int = 0,
+    coded: Optional[CodedDataset] = None,
+    X_test: Optional[np.ndarray] = None,
+    y_test: Optional[np.ndarray] = None,
+    trace_sink: Optional[List[dict]] = None,
+    device: DeviceLike = None,
+):
+    """Run one plan end to end on ``device`` (default CUDA; raises without
+    one unless ``device="cpu"``); returns a ``SubStratResult``.
+
+    ``seed`` seeds the strategy's generator (on the device) and the subset
+    patch draw.  The per-phase ``times`` are recorded as spans: pass
+    ``trace_sink=[]`` to receive the closed span records.  Each phase ends
+    with its results on the host, so its time covers its device work."""
+    from .substrat import SubStratResult, build_subset, dst_feature_columns, nf_test_eval
+    dev = resolve_device(device)
+    times = {}
+    spans = [] if trace_sink is None else trace_sink
+    strat_name = (p.strategy if isinstance(p.strategy, str)
+                  else getattr(p.strategy, "__name__", "<callable>"))
+    tid = _trace.span_id("substrat-oneshot", strat_name)
+
+    @contextlib.contextmanager
+    def _phase(name, tkey):
+        t0 = time.perf_counter()
+        with _trace.span(spans, tid, name, phase=name):
+            yield
+        times[tkey] = times.get(tkey, 0.0) + (time.perf_counter() - t0)
+
+    with _phase("factorize", "factorize_s"):
+        coded = factorize(X, y, device=dev) if coded is None else coded.to(dev)
+
+    with _phase("gen_dst", "gen_dst_s"):
+        subset: SubsetResult = run_strategy(
+            p.strategy, make_generator(seed, dev), coded, p.n, p.m, p.strategy_opts)
+    col_idx = dst_feature_columns(subset.col_mask, coded.target_col)
+
+    with _phase("sub_automl", "automl_sub_s"):
+        X_sub, y_sub = build_subset(X, y, subset.row_idx, col_idx,
+                                    make_generator(seed ^ 0x5AB5))
+        intermediate = automl_fit(X_sub, y_sub, config=p.sub_automl, device=dev)
+
+    if p.fine_tune:
+        with _phase("fine_tune", "fine_tune_s"):
+            final = automl_fit(
+                X, y,
+                config=p.ft_automl,
+                restrict_family=intermediate.spec.family,
+                X_test=X_test, y_test=y_test, device=dev,
+            )
+    else:
+        final = intermediate
+        if X_test is not None:
+            final = nf_test_eval(intermediate, y_sub, col_idx, X_test, y_test)
+
+    return SubStratResult(
+        final=final,
+        intermediate=intermediate,
+        row_idx=subset.row_idx,
+        col_idx=col_idx,
+        dst_fitness=subset.fitness,
+        times=times,
+        total_time_s=sum(times.values()),
+        strategy=subset.strategy,
+    )

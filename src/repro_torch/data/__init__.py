@@ -1,0 +1,1 @@
+"""Synthetic tabular data (a numpy copy of the JAX package's ``data/tabular.py``)."""

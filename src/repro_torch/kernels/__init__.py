@@ -1,0 +1,27 @@
+"""Hand-written Hopper kernels of the port, each beside its plain version.
+
+Each kernel package holds ``ref.py`` (plain PyTorch), ``kernel.py`` (the
+CUDA wrapper and its launch counter) and ``ops.py`` (the public op: a CUDA
+tensor launches the kernel, a CPU tensor runs the plain version).
+"""
+from __future__ import annotations
+
+from .entropy import kernel as _entropy_kernel
+from .gen_dst import kernel as _gen_dst_kernel
+
+__all__ = ["launch_counts", "reset_launch_counts"]
+
+_KERNELS = {
+    "masked_histogram": _entropy_kernel,
+    "fused_delta_fitness": _gen_dst_kernel,
+}
+
+
+def launch_counts() -> dict:
+    """Launches of each CUDA kernel since the last reset."""
+    return {name: mod.launches for name, mod in _KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for mod in _KERNELS.values():
+        mod.launches = 0

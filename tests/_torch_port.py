@@ -1,0 +1,147 @@
+"""Shared helpers of the PyTorch-port parity tests (``tests/test_torch_*.py``).
+
+Tensors cross between the two packages as numpy arrays.  ``JaxDraws`` is a
+draw provider for ``repro_torch.core.gen_dst`` that replays the JAX
+package's own key splits (``repro/core/gen_dst.py``), so the port's GA runs
+on exactly the random numbers the reference's GA draws from the same key.
+"""
+from __future__ import annotations
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+requires_cuda = pytest.mark.cuda
+
+
+def skip_without_cuda():
+    """Skip the calling test when no CUDA card is present (decided at run
+    time, never at import or collection)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels cannot run on the CPU")
+
+
+def t(x, dtype=None, device="cpu") -> torch.Tensor:
+    """numpy/JAX array -> torch tensor."""
+    return torch.as_tensor(np.array(x), dtype=dtype, device=device)
+
+
+def np_(x) -> np.ndarray:
+    """torch tensor or JAX array -> numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+# ---------------------------------------------------------------------------
+# the reference's draws, one island (the reference vmaps these over islands)
+# ---------------------------------------------------------------------------
+
+
+def _uniform_rows(keys, M):
+    return jax.vmap(lambda k: jax.random.uniform(k, (M,)))(keys)
+
+
+def _randint_rows(keys, n, N):
+    return jax.vmap(lambda k: jax.random.randint(k, (n,), 0, N, dtype=jnp.int32))(keys)
+
+
+@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4))
+def init_draws(key, phi, N, M, n):
+    """``_init_population``'s draws (``gen_dst.py:151-160``)."""
+    kr, kc, kd = jax.random.split(key, 3)
+    return {"rows": jax.random.randint(kr, (phi, n), 0, N, dtype=jnp.int32),
+            "dedup": _randint_rows(jax.random.split(kd, phi), n, N),
+            "col_u": _uniform_rows(jax.random.split(kc, phi), M)}
+
+
+@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4))
+def mutate_draws(key, phi, N, M, n):
+    """``_mutate_core``'s draws (``gen_dst.py:234-257``)."""
+    k1, k2, k3, k4, k5, _ = jax.random.split(key, 6)
+    pair = jax.vmap(jax.random.split)(jax.random.split(k5, phi))      # (phi, 2)
+    return {"u_mut": jax.random.uniform(k1, (phi,)), "u_rc": jax.random.uniform(k2, (phi,)),
+            "slot": jax.random.randint(k3, (phi,), 0, n),
+            "fresh": jax.random.randint(k4, (phi,), 0, N, dtype=jnp.int32),
+            "u_off": _uniform_rows(pair[:, 0], M), "u_on": _uniform_rows(pair[:, 1], M)}
+
+
+@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4, 5))
+def cross_draws(key, phi, N, M, n, m):
+    """``_crossover``'s draws (``gen_dst.py:288-329``).  A row permutation
+    ``permutation(k, r)`` is drawn as the index permutation
+    ``permutation(k, n)``, which it applies to ``r``."""
+    half = phi // 2
+    kp, kt, ks, kra, krb, kca, kcb, kfa, kfb, kda, kdb = jax.random.split(key, 11)
+    ksr, ksc = jax.random.split(ks)
+    perms = jax.vmap(lambda k: jax.random.permutation(k, n))
+    ca = jax.vmap(jax.random.split)(jax.random.split(kca, half))
+    cb = jax.vmap(jax.random.split)(jax.random.split(kcb, half))
+    return {"perm": jax.random.permutation(kp, phi),
+            "u_cross": jax.random.uniform(kt, (half,)),
+            "s_r": jax.random.randint(ksr, (half,), 1, jnp.maximum(n, 2)),
+            "s_c": jax.random.randint(ksc, (half,), 1, jnp.maximum(m - 1, 2)),
+            "pi_a": perms(jax.random.split(kra, half)), "pi_b": perms(jax.random.split(krb, half)),
+            "fresh_ab": _randint_rows(jax.random.split(kda, half), n, N),
+            "fresh_ba": _randint_rows(jax.random.split(kdb, half), n, N),
+            "u_ab1": _uniform_rows(ca[:, 0], M), "u_ab2": _uniform_rows(ca[:, 1], M),
+            "u_abf": _uniform_rows(jax.random.split(kfa, half), M),
+            "u_ba1": _uniform_rows(cb[:, 0], M), "u_ba2": _uniform_rows(cb[:, 1], M),
+            "u_baf": _uniform_rows(jax.random.split(kfb, half), M)}
+
+
+_INDEX_DRAWS = ("slot", "perm", "pi_a", "pi_b", "s_r", "s_c")
+
+
+def to_port(draws_per_island) -> dict:
+    """Stack per-island draws on a leading island axis as torch tensors
+    (index draws as int64, row draws as int32, uniforms as float32)."""
+    out = {}
+    for name in draws_per_island[0]:
+        arr = np.stack([np.asarray(d[name]) for d in draws_per_island])
+        dtype = (torch.int64 if name in _INDEX_DRAWS else
+                 torch.int32 if arr.dtype.kind in "iu" else torch.float32)
+        out[name] = torch.as_tensor(arr, dtype=dtype)
+    return out
+
+
+class JaxDraws:
+    """Draw provider that replays ``_gen_dst_core``'s key flow: ``k0, kloop =
+    split(key)``; islands from ``split(k0, I)``; per generation ``key, km,
+    kx, ksel = split(key, 4)`` and per island ``split(km|kx|ksel, I)``."""
+
+    def __init__(self, key):
+        self.k0, self.key = jax.random.split(key)
+
+    def init(self, I, phi, N, M, n):
+        return to_port([init_draws(k, phi, N, M, n) for k in jax.random.split(self.k0, I)])
+
+    def generation(self):
+        self.key, km, kx, ksel = jax.random.split(self.key, 4)
+        return _JaxGeneration(km, kx, ksel)
+
+
+class _JaxGeneration:
+    def __init__(self, km, kx, ksel):
+        self.km, self.kx, self.ksel = km, kx, ksel
+
+    def mutate(self, I, phi, N, M, n):
+        return to_port([mutate_draws(k, phi, N, M, n) for k in jax.random.split(self.km, I)])
+
+    def cross(self, I, phi, N, M, n, m):
+        return to_port([cross_draws(k, phi, N, M, n, m) for k in jax.random.split(self.kx, I)])
+
+    def select(self, probs, k):
+        """``jax.random.choice(key, phi, (k,), p=...)`` per island."""
+        drawn = _choice(jax.random.split(self.ksel, probs.shape[0]), jnp.asarray(np_(probs)), k)
+        return torch.as_tensor(np.array(drawn), dtype=torch.int64)
+
+
+@functools.partial(jax.jit, static_argnums=(2,))
+def _choice(keys, probs, k):
+    phi = probs.shape[1]
+    return jax.vmap(lambda kk, p: jax.random.choice(kk, phi, (k,), replace=True, p=p))(keys, probs)

@@ -13,3 +13,6 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers",
         "slow: spawns real worker subprocesses (skippable with -m 'not slow')")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA CUDA card (the port's CUDA kernels); skips without one")

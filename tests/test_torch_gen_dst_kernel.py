@@ -1,0 +1,102 @@
+"""The fused Gen-DST step of the port (kernels/gen_dst) against the reference.
+
+On the CPU the port's op runs its plain version; it is held to the
+reference's ``fused_delta_fitness_ref`` and to its Pallas kernel in
+interpret mode.  The CUDA leg compares the hand-written kernel with the
+plain version and skips without a card.
+
+Tolerances: counts bit-equal (exact ±1.0 adds on integer-valued float32);
+fitness within 1e-6 absolute (the port sums the entropy in float64).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.gen_dst.kernel import fused_delta_fitness_pallas
+from repro.kernels.gen_dst.ops import fused_delta_fitness as j_fused
+from repro.kernels.gen_dst.ref import fused_delta_fitness_ref as j_fused_ref
+from repro_torch.kernels.gen_dst.ops import fused_delta_fitness
+from repro_torch.kernels.gen_dst.ref import fused_delta_fitness_ref
+from _torch_port import np_, requires_cuda, skip_without_cuda, t
+
+
+def _case(lead, M, B, seed, code_max=None):
+    """Random inputs with leading shape ``lead``; ``code_max`` < B leaves
+    padding bins."""
+    rng = np.random.default_rng(seed)
+    hi = B if code_max is None else code_max
+    base = rng.integers(0, hi, lead + (12, M))
+    counts = np.zeros(lead + (M, B), np.float32)
+    for idx in np.ndindex(*lead):
+        for j in range(M):
+            np.add.at(counts[idx + (j,)], base[idx + (slice(None), j)], 1.0)
+    old = base[..., 0, :].astype(np.int32)
+    new = rng.integers(0, hi, lead + (M,)).astype(np.int32)
+    applied = rng.random(lead) < 0.6
+    col_mask = rng.random(lead + (M,)) < 0.5
+    col_mask[..., 0] = True
+    return counts, old, new, applied, col_mask, np.float32(rng.random() * 3.0)
+
+
+# the reference's cases (tests/test_gen_dst_fused.py): P below, above and at
+# the Pallas tile, and padding bins
+FUSED_CASES = [
+    (3, 4, 8, None),
+    (10, 5, 16, None),
+    (16, 3, 32, 17),
+    (8, 7, 8, None),
+    (25, 2, 64, 40),
+]
+
+
+def _port(args, device="cpu"):
+    counts, old, new, applied, cm, f_ref = args
+    return (t(counts, device=device), t(old, device=device), t(new, device=device),
+            t(applied, device=device), t(cm, device=device), t(f_ref, device=device))
+
+
+@pytest.mark.parametrize("P,M,B,code_max", FUSED_CASES)
+def test_plain_fused_matches_reference(P, M, B, code_max):
+    args = _case((P,), M, B, seed=P * 131 + B, code_max=code_max)
+    c_t, f_t = fused_delta_fitness(*_port(args))
+    jargs = tuple(jnp.asarray(a) for a in args)
+    c_r, f_r = j_fused_ref(*jargs)
+    c_k, f_k = fused_delta_fitness_pallas(*jargs, bins=B, interpret=True)
+    np.testing.assert_array_equal(np_(c_t), np.asarray(c_r))
+    np.testing.assert_array_equal(np_(c_t), np.asarray(c_k))
+    np.testing.assert_allclose(np_(f_t), np.asarray(f_r), atol=1e-6)
+    np.testing.assert_allclose(np_(f_t), np.asarray(f_k), atol=1e-6)
+    if code_max is not None:
+        assert not np_(c_t)[..., code_max:].any()
+
+
+def test_zero_delta_leaves_counts_and_reduces_fitness():
+    counts, old, new, _, cm, f_ref = _case((6,), 4, 16, seed=9)
+    args = (counts, old, new, np.zeros(6, bool), cm, f_ref)
+    c_t, f_t = fused_delta_fitness(*_port(args))
+    np.testing.assert_array_equal(np_(c_t), counts)
+    _, f_r = j_fused_ref(*(jnp.asarray(a) for a in args))
+    np.testing.assert_allclose(np_(f_t), np.asarray(f_r), atol=1e-6)
+
+
+def test_leading_axes_flatten_and_restore_in_place():
+    args = _case((2, 5), 3, 16, seed=4)
+    ported = _port(args)
+    c_t, f_t = fused_delta_fitness(*ported)
+    assert c_t is ported[0], "counts are updated in place"
+    assert f_t.shape == (2, 5) and c_t.shape == (2, 5, 3, 16)
+    c_r, f_r = j_fused(*(jnp.asarray(a) for a in args))
+    np.testing.assert_array_equal(np_(c_t), np.asarray(c_r))
+    np.testing.assert_allclose(np_(f_t), np.asarray(f_r), atol=1e-6)
+
+
+@requires_cuda
+@pytest.mark.parametrize("P,M,B,code_max", FUSED_CASES + [(100, 23, 256, None)])
+def test_cuda_fused_matches_plain(P, M, B, code_max):
+    skip_without_cuda()
+    args = _case((P,), M, B, seed=P + M, code_max=code_max)
+    c_k, f_k = fused_delta_fitness(*_port(args, "cuda"))
+    c_r, f_r = fused_delta_fitness_ref(*_port(args, "cuda"))
+    assert torch.equal(c_k, c_r)
+    assert (f_k - f_r).abs().max().item() <= 1e-6
