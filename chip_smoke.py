@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port of SubStrat on one CUDA card and check it.
+"""Run the PyTorch port of SubStrat, and its LM serving slice, on one CUDA
+card and check it.
 
     python3 chip_smoke.py
 
@@ -28,6 +29,26 @@ Phases, in order; any failure exits non-zero and prints no result:
 6. Where the time goes: the Gen-DST phase alone and the whole ``execute``
    again under ``torch.profiler``: the device-busy share of the wall time and
    the kernels with the most device time.
+7. The flash-attention kernel against its plain version at zamba2's prefill
+   shape (B 4, S 1024, 32 heads, hd 80, bf16, causal) and at edge shapes
+   (GQA, MQA with hd 256, ragged S, float32, non-causal): bf16 within 2e-2,
+   float32 within 2e-5.  Timed beside its plain version,
+   ``scaled_dot_product_attention`` and its bound.
+8. The SSD-scan kernel against its plain version at zamba2's shape (B 4,
+   S 1024, 80 heads, P = N = 64, block_q 128, which the kernel walks in
+   chunks of 64; bf16) and at edge shapes (G > 1 with a partial chunk, small
+   Q, float32, N 128): y within 5e-2 (bf16) and 1e-3 (float32) of the plain
+   version run in float32 on the same values, the final state within 1e-3
+   relative.  Timed the same way.
+9. The LM serving path: the hybrid smoke config in float32 on the card and
+   the CPU (logits within 1e-4, greedy tokens equal); then
+   ``launch.serve.main`` for zamba2-2.7b at full width (batch 4, prompt 1024,
+   32 tokens, bf16, seeded weights), with both kernels' launch counters
+   zeroed before and read after (9 and 54 per prefill), finite logits; warm
+   prefill and decode times and the profile of each; decode steps under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no step may wait for the
+   host); and the serving invariant (decode step t = forward at t within
+   1e-2) at full width and 12 layers in float32.
 
 Then it prints the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and,
 last, ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -43,10 +64,17 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM published memory rate
+BF16_OPS_PER_S = 989e12        # H100 SXM published bf16 dense tensor-core rate
 FP32_OPS_PER_S = 67e12         # H100 SXM published float32 rate (no tensor cores)
 FP64_OPS_PER_S = 34e12         # H100 SXM published float64 rate (no tensor cores)
 HIST_TOL = 1e-5                # fractional-weight histogram: rtol = atol
 FIT_TOL = 1e-6                 # fused kernel fitness, and DST fitness recomputation
+# flash attention against its plain version, max-abs (tests/test_kernels.py:145)
+FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# SSD scan y against its plain version, max-abs (tests/test_ssd_kernel.py:35);
+# its final state within SSD_STATE_RTOL of the state's largest magnitude
+SSD_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
+SSD_STATE_RTOL = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -179,6 +207,279 @@ def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float) -> tuple[float, str
     over the peak rate of their type, whichever is larger."""
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def phase7_flash_attention(torch, dev) -> dict:
+    """B3 against its plain version on the card, timed beside its plain
+    version, ``scaled_dot_product_attention`` and its bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def inputs(B, Sq, Skv, H, Kh, hd, dtype, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return tuple(torch.randn((B, S, h, hd), generator=gen, device=dev).to(dtype)
+                     for S, h in ((Sq, H), (Skv, Kh), (Skv, Kh)))
+
+    main_shape = (4, 1024, 1024, 32, 32, 80, bf16, True)     # zamba2 prefill
+    shapes = [
+        main_shape,
+        (2, 512, 512, 32, 8, 128, bf16, True),     # GQA 32/8, hd 128 (qwen3, llama3)
+        (2, 256, 256, 8, 1, 256, bf16, True),      # MQA 8/1, hd 256 (gemma)
+        (2, 512, 512, 32, 8, 64, bf16, True),      # hd 64 (granite)
+        (2, 300, 300, 32, 32, 80, bf16, True),     # ragged S
+        (1, 200, 333, 4, 2, 64, f32, True),        # ragged, Sq != Skv, float32
+        (2, 256, 256, 32, 32, 80, f32, True),      # float32 at zamba2's heads
+        (2, 256, 192, 8, 2, 128, bf16, False),     # non-causal
+        (2, 130, 130, 4, 2, 16, f32, False),       # smoke widths
+        (2, 128, 128, 4, 1, 32, f32, True),
+    ]
+    main_err = None
+    for i, (B, Sq, Skv, H, Kh, hd, dtype, causal) in enumerate(shapes):
+        q, k, v = inputs(B, Sq, Skv, H, Kh, hd, dtype, seed=100 + i)
+        o_k = flash_attention_cuda(q, k, v, causal=causal)
+        o_r = attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err = (o_k.float() - o_r.float()).abs().max().item()
+        tol = FA_TOL[_dtype_name(dtype)]
+        if not err <= tol:
+            fail(f"flash_attention: max_abs_err {err} > {tol} at {(B, Sq, Skv, H, Kh, hd)} "
+                 f"{_dtype_name(dtype)} causal={causal}")
+        print(f"flash_attention B={B} Sq={Sq} Skv={Skv} H={H} Kh={Kh} hd={hd} "
+              f"{_dtype_name(dtype)} causal={causal}: max_abs_err {err:.3e}")
+        if i == 0:
+            main_err = err
+
+    B, S, _, H, Kh, hd, dtype, _ = main_shape
+    q, k, v = inputs(B, S, S, H, Kh, hd, dtype, seed=100)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))   # SDPA's layout
+    ms_k = time_ms(torch, lambda: flash_attention_cuda(q, k, v, causal=True), "kernel",
+                   iters=20)
+    ms_p = time_ms(torch, lambda: attention_ref(q, k, v, causal=True), "plain", iters=3,
+                   repeats=3, warmup=1)
+    ms_l = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+                   "scaled_dot_product_attention", iters=20)
+    # q, k, v read once and o written once; 2 * hd multiply-adds per kept
+    # (query, key) pair in QK^T and again in PV, S(S+1)/2 pairs per head
+    n_bytes = 4 * q.numel() * q.element_size()
+    n_ops = 4 * B * H * hd * S * (S + 1) // 2
+    b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_OPS_PER_S)
+    dev_ms = kernel_device_ms(torch, lambda: flash_attention_cuda(q, k, v, causal=True),
+                              "flash_attention_kernel", calls=20)
+    print(f"flash_attention (B={B}, S={S}, H={H}, hd={hd}, bf16, causal): kernel "
+          f"{ms_k:.4f} ms, device {dev_ms} ms, plain {ms_p:.4f} ms, sdpa {ms_l:.4f} ms, "
+          f"bound {b_ms:.5f} ms ({b_by})")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:78",
+            "launches": None, "max_abs_err": main_err, "ms": ms_k, "plain_ms": ms_p,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": ms_l}
+
+
+def phase8_ssd_scan(torch, dev) -> dict:
+    """B4 against its plain version on the card, y and final state, timed
+    beside its plain version and its bound (no one PyTorch call computes it)."""
+    from repro_torch.kernels.ssd_scan.kernel import chunk_for, ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_model_ref
+
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def inputs(B, S, H, P, G, N, dtype, seed):
+        """x, B and C as views into one (B, S, H*P + 2*G*N) tensor, as the
+        model slices them from its conv output; B and C scaled so that C.B
+        has the spread it has at N = 16 in the reference's tests."""
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        xbc = torch.randn((B, S, H * P + 2 * G * N), generator=gen, device=dev)
+        xbc[..., H * P:] *= (16 / N) ** 0.25
+        xbc = xbc.to(dtype)
+        x = xbc[..., :H * P].reshape(B, S, H, P)
+        bm = xbc[..., H * P:H * P + G * N].reshape(B, S, G, N)
+        cm = xbc[..., H * P + G * N:].reshape(B, S, G, N)
+        dt = 0.01 + 0.19 * torch.rand((B, S, H), generator=gen, device=dev)
+        a = -(0.5 + 3.5 * torch.rand((H,), generator=gen, device=dev))
+        return x, dt, a, bm, cm
+
+    main_shape = (4, 1024, 80, 64, 1, 64, 128, bf16)         # zamba2 prefill
+    shapes = [
+        main_shape,
+        (4, 1024, 80, 64, 1, 64, 128, f32),        # float32 at zamba2's shape
+        (2, 300, 16, 32, 4, 32, 64, bf16),         # G = 4, partial last chunk
+        (2, 64, 8, 16, 2, 16, 8, f32),             # small Q (smoke chunk)
+        (1, 16, 4, 8, 1, 8, 4, f32),               # serving-test widths
+        (2, 512, 24, 64, 1, 128, 256, f32),        # mamba2-130m: N 128, Q 256 halved
+    ]
+    main_err = None
+    for i, (B, S, H, P, G, N, Q, dtype) in enumerate(shapes):
+        x, dt, a, bm, cm = inputs(B, S, H, P, G, N, dtype, seed=200 + i)
+        y_k, h_k = ssd_scan_cuda(x, dt, a, bm, cm, block_q=Q)
+        # the plain version in float32 on the same values: the kernel rounds
+        # its float32 result once, and a second rounding of the plain
+        # version's result could flip a last bit against it
+        y_r, h_r = ssd_scan_model_ref(x.float(), dt, a, bm.float(), cm.float())
+        torch.cuda.synchronize()
+        err = (y_k.float() - y_r.float()).abs().max().item()
+        h_err = ((h_k - h_r).abs().max() / h_r.abs().max()).item()
+        tol = SSD_TOL[_dtype_name(dtype)]
+        if not (err <= tol and h_err <= SSD_STATE_RTOL):
+            fail(f"ssd_scan: y max_abs_err {err} (limit {tol}), state rel err {h_err} "
+                 f"(limit {SSD_STATE_RTOL}) at {(B, S, H, P, G, N, Q)} {_dtype_name(dtype)}")
+        print(f"ssd_scan B={B} S={S} H={H} P={P} G={G} N={N} Q={Q} {_dtype_name(dtype)}: "
+              f"y max_abs_err {err:.3e}, state rel err {h_err:.3e}")
+        if i == 0:
+            main_err = err
+
+    B, S, H, P, G, N, Q, dtype = main_shape
+    x, dt, a, bm, cm = inputs(B, S, H, P, G, N, dtype, seed=200)
+    ms_k = time_ms(torch, lambda: ssd_scan_cuda(x, dt, a, bm, cm, block_q=Q), "kernel",
+                   iters=20)
+    ms_p = time_ms(torch, lambda: ssd_scan_model_ref(x, dt, a, bm, cm), "plain", iters=2,
+                   repeats=3, warmup=1)
+    # x, dt, a, B and C read once, y and the final state written once; per
+    # chunk the kernel walks (Qk), the C B^T and PV products over the full
+    # Qk x Qk tile and the two (Qk, P, N) state products
+    Qk = chunk_for(Q, S, P, N)
+    es = x.element_size()
+    n_bytes = (2 * B * S * H * P * es + B * S * H * 4 + H * 4 + 2 * B * S * G * N * es
+               + B * H * P * N * 4)
+    n_ops = B * H * math.ceil(S / Qk) * 2 * (Qk * Qk * N + Qk * Qk * P + 2 * Qk * P * N)
+    b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_OPS_PER_S)
+    dev_ms = kernel_device_ms(torch, lambda: ssd_scan_cuda(x, dt, a, bm, cm, block_q=Q),
+                              "ssd_scan_kernel", calls=20)
+    print(f"ssd_scan (B={B}, S={S}, H={H}, P={P}, N={N}, block_q={Q}, kernel chunk {Qk}, "
+          f"bf16): kernel {ms_k:.4f} ms, device {dev_ms} ms, plain {ms_p:.4f} ms, "
+          f"bound {b_ms:.5f} ms ({b_by})")
+    return {"name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan/kernel.py:62",
+            "launches": None, "max_abs_err": main_err, "ms": ms_k, "plain_ms": ms_p,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 1024, 32
+SERVE_ARGV = ["--arch", "zamba2-2.7b", "--preset", "full", "--batch", str(SERVE_BATCH),
+              "--prompt-len", str(SERVE_PROMPT), "--gen", str(SERVE_GEN), "--device", "cuda",
+              "--seed", "0"]
+SERVE_CARD_CPU_TOL = 1e-4      # float32 logits, card (kernels) vs CPU (plain versions)
+SERVE_INVARIANT_TOL = 1e-2     # decode step t vs forward at t (tests/test_serve.py)
+
+
+def phase9_serving(torch, dev, K) -> dict:
+    """The LM serving path: the hybrid smoke config on the card and on the
+    CPU; ``serve.main`` for zamba2-2.7b at full width with both kernels'
+    launches counted; the serving invariant at full width and 12 layers in
+    float32; the profile of a prefill and of the decode loop.  Returns the
+    main path's launch counts."""
+    import copy
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.device import make_generator
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    arch = get_arch("zamba2-2.7b")
+    # (a) small input: the same weights on the card (kernels) and the CPU
+    cfg = dataclasses.replace(arch.smoke, dtype=torch.float32)
+    params_cpu = lm.init_params(make_generator(0), cfg)
+    params_dev = copy.deepcopy(params_cpu).to(dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=make_generator(1))
+    logits_cpu = lm.forward(params_cpu, {"tokens": toks}, cfg)
+    logits_dev = lm.forward(params_dev, {"tokens": toks.to(dev)}, cfg)
+    err = (logits_dev.cpu() - logits_cpu).abs().max().item()
+    ids_cpu = serve.generate(params_cpu, toks[:, :32], cfg, 8).ids
+    ids_dev = serve.generate(params_dev, toks[:, :32].to(dev), cfg, 8).ids
+    if not err <= SERVE_CARD_CPU_TOL:
+        fail(f"serving smoke: card and CPU logits differ by {err} > {SERVE_CARD_CPU_TOL}")
+    if not torch.equal(ids_cpu, ids_dev):
+        fail(f"serving smoke: greedy tokens differ, card {ids_dev.tolist()} vs CPU "
+             f"{ids_cpu.tolist()}")
+    print(f"serving smoke ({cfg.name}, float32, S=40): card = CPU, logits max_abs_err "
+          f"{err:.3e}, greedy tokens equal")
+
+    # (b) the main path: serve.main at full width, launches counted
+    full = arch.config
+    torch.cuda.reset_peak_memory_stats()
+    print(f"  clocks before serving: {smi_state()}")
+    K.reset_launch_counts()
+    res = serve.main(SERVE_ARGV)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    print(f"  clocks after serving: {smi_state()}")
+    n_attn = full.n_layers // full.shared_attn_every
+    print(f"main path serve.main({' '.join(SERVE_ARGV)}): launches {launches}; cold "
+          f"prefill {res.prefill_ms:.3f} ms, decode {res.decode_ms_per_token:.3f} ms/token; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    if launches["flash_attention"] != n_attn or launches["ssd_scan"] != full.n_layers:
+        fail(f"one prefill should launch flash_attention {n_attn} and ssd_scan "
+             f"{full.n_layers} times, got {launches}")
+    if not (torch.isfinite(res.prefill_logits).all() and torch.isfinite(res.last_logits).all()):
+        fail("serving: logits are not finite")
+    if res.ids.shape != (SERVE_BATCH, SERVE_GEN) or not (0 <= int(res.ids.min()) and
+                                        int(res.ids.max()) < full.vocab_size):
+        fail(f"serving: generated ids {tuple(res.ids.shape)} out of shape or range")
+
+    # warm timings and the profile, on weights and prompts made as serve.main makes them
+    batch, prompt_len, gen = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    params = lm.to_compute_dtype_(lm.init_params(make_generator(0, dev), full), full)
+    prompts = torch.randint(0, full.vocab_size, (batch, prompt_len),
+                            generator=make_generator(1, dev), device=dev)
+    warm = serve.generate(params, prompts, full, gen)
+    print(f"serving zamba2-2.7b (full width, {full.n_layers} layers, bf16, batch {batch}, prompt "
+          f"{prompt_len}, {gen} tokens), warm: prefill {warm.prefill_ms:.3f} ms, decode "
+          f"{warm.decode_ms_per_token:.3f} ms/token, {batch * 1e3 / warm.decode_ms_per_token:.1f} "
+          f"tokens/s  [{smi_line()}]")
+    print(f"  warm run's tokens equal serve.main's (same seeds): "
+          f"{torch.equal(warm.ids, res.ids)}")
+    print("profiled prefill, then the decode loop:")
+    profile_share(torch, lambda: lm.prefill(params, {"tokens": prompts}, full,
+                                            max_len=prompt_len + gen))
+    _, cache = lm.prefill(params, {"tokens": prompts}, full, max_len=prompt_len + gen)
+    tok = warm.ids[:, :1].to(dev)
+
+    def decode_loop():
+        t = tok
+        for i in range(gen - 1):
+            logits, _ = lm.decode(params, cache, t, prompt_len + i, full)
+            t = logits[:, -1].argmax(dim=-1, keepdim=True)
+    profile_share(torch, decode_loop)
+    # the decode loop stays on the device: steps under sync-debug "error"
+    # raise at the first operation that waits for the host
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        decode_loop()
+    except RuntimeError as exc:
+        fail(f"decode synchronised with the host: {exc}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print("  decode loop: no host sync inside the steps")
+    del params, cache
+
+    # (c) the serving invariant at full width, 12 layers, float32
+    cfg12 = dataclasses.replace(full, n_layers=12, dtype=torch.float32)
+    params12 = lm.init_params(make_generator(3, dev), cfg12)
+    S, prompt = 144, 128
+    toks = torch.randint(0, cfg12.vocab_size, (2, S), generator=make_generator(4, dev),
+                         device=dev)
+    ref = lm.forward(params12, {"tokens": toks}, cfg12)[:, prompt - 1:]
+    logits, cache = lm.prefill(params12, {"tokens": toks[:, :prompt]}, cfg12, max_len=S)
+    outs = [logits[:, 0]]
+    for t in range(prompt, S):
+        lg, cache = lm.decode(params12, cache, toks[:, t:t + 1], t, cfg12)
+        outs.append(lg[:, 0])
+    dec = torch.stack(outs, dim=1)
+    excess = ((dec - ref).abs() - SERVE_INVARIANT_TOL * (1 + ref.abs())).max().item()
+    err = (dec - ref).abs().max().item()
+    if not excess <= 0:
+        fail(f"serving invariant: decode differs from forward by {err} (atol = rtol = "
+             f"{SERVE_INVARIANT_TOL})")
+    print(f"serving invariant (zamba2 width, 12 layers, float32, S={S}, prompt {prompt}): "
+          f"decode = forward within {SERVE_INVARIANT_TOL}, max_abs_err {err:.3e}")
+    return launches
 
 
 def main() -> None:
@@ -412,6 +713,14 @@ def main() -> None:
     print("profiled main path (Gen-DST phase alone, then the whole execute):")
     profile_share(torch, lambda: gen_dst(make_generator(0, dev), coded, device=dev))
     profile_share(torch, lambda: execute(plan("gen_dst"), X_tr, y_tr, seed=0, device="cuda"))
+
+    # --- 7-9. the LM serving slice: B3, B4 and zamba2-2.7b at full width -----
+    kernels.append(phase7_flash_attention(torch, dev))
+    kernels.append(phase8_ssd_scan(torch, dev))
+    launches = phase9_serving(torch, dev, K)
+    for entry in kernels:
+        if entry["launches"] is None:
+            entry["launches"] = launches[entry["name"]]
 
     print(json.dumps({"kernels": kernels}))
     print(smi_line())

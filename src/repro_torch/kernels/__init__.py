@@ -7,13 +7,17 @@ tensor launches the kernel, a CPU tensor runs the plain version).
 from __future__ import annotations
 
 from .entropy import kernel as _entropy_kernel
+from .flash_attention import kernel as _flash_attention_kernel
 from .gen_dst import kernel as _gen_dst_kernel
+from .ssd_scan import kernel as _ssd_scan_kernel
 
 __all__ = ["launch_counts", "reset_launch_counts"]
 
 _KERNELS = {
     "masked_histogram": _entropy_kernel,
     "fused_delta_fitness": _gen_dst_kernel,
+    "flash_attention": _flash_attention_kernel,
+    "ssd_scan": _ssd_scan_kernel,
 }
 
 

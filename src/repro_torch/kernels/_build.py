@@ -31,14 +31,23 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
 
 _C_PTR = ctypes.c_void_p
 _C_INT = ctypes.c_int
-# C signature of each source's launcher ``launch_<source stem>``: pointer and
-# int arguments, then the stream
+_C_I64 = ctypes.c_longlong
+_C_FLOAT = ctypes.c_float
+# C signature of each source's launcher ``launch_<source stem>``: pointer,
+# int and float arguments, then the stream
 _SIGNATURES = {
     "masked_histogram":
         [_C_PTR, _C_PTR, _C_PTR, _C_INT, _C_INT, _C_INT, _C_INT, _C_PTR],
     "fused_delta_fitness":
         [_C_PTR, _C_PTR, _C_PTR, _C_PTR, _C_PTR, _C_PTR, _C_PTR,
          _C_INT, _C_INT, _C_INT, _C_PTR],
+    "flash_attention":
+        [_C_PTR, _C_PTR, _C_PTR, _C_PTR,
+         _C_INT, _C_INT, _C_INT, _C_INT, _C_INT, _C_INT, _C_INT, _C_INT, _C_FLOAT, _C_PTR],
+    "ssd_scan":
+        [_C_PTR, _C_PTR, _C_PTR, _C_PTR, _C_PTR, _C_PTR, _C_PTR,
+         _C_INT, _C_INT, _C_INT, _C_INT, _C_INT, _C_INT, _C_INT,
+         _C_I64, _C_I64, _C_I64, _C_I64, _C_INT, _C_PTR],
 }
 
 _lib: Optional[types.SimpleNamespace] = None

@@ -1,0 +1,62 @@
+"""CUDA wrapper of the flash-attention kernel (``csrc/flash_attention.cu``).
+
+Replaces the JAX package's Pallas kernel ``flash_attention_pallas``
+(``src/repro/kernels/flash_attention/kernel.py:78``).  The source states the
+design and the bound.
+
+Tolerance against ``ref.attention_ref``: the kernel sums the scores and the
+weighted values in float32 in another order (online softmax over 64-key
+tiles), so float32 outputs agree within 2e-5 and bfloat16 outputs within
+2e-2 max-abs (one bf16 rounding), as the reference's
+``tests/test_kernels.py:145`` holds its Pallas kernel.
+
+``launches`` counts the kernel's launches; it is incremented only where the
+kernel is launched.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+
+__all__ = ["flash_attention_cuda", "launches"]
+
+launches = 0
+MAX_HEAD_DIM = 256
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         causal: bool = True) -> torch.Tensor:
+    """q (B, Sq, H, hd), k/v (B, Skv, Kh, hd), contiguous, float32 or bfloat16
+    -> (B, Sq, H, hd) in q's dtype."""
+    global launches
+    if not all(x.is_cuda and x.device == q.device for x in (q, k, v)):
+        raise ValueError("flash_attention_cuda: tensors must be on one CUDA device")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention_cuda: q, k, v must share a dtype in "
+                        f"{list(_DTYPES)}, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_attention_cuda: bad shapes {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, Sq, H, hd = q.shape
+    Skv, Kh = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != hd or Kh == 0 or H % Kh != 0:
+        raise ValueError(f"flash_attention_cuda: k/v {tuple(k.shape)} do not match "
+                         f"q {tuple(q.shape)} (H must be a multiple of Kh)")
+    if not 0 < hd <= MAX_HEAD_DIM or B * H > 65535 or Skv == 0:
+        raise ValueError(f"flash_attention_cuda: hd={hd}, B*H={B * H}, Skv={Skv} "
+                         f"outside 0 < hd <= {MAX_HEAD_DIM}, B*H <= 65535, Skv > 0")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention_cuda: tensors must be contiguous")
+    out = torch.empty_like(q)
+    if B * Sq * H == 0:
+        return out
+    lib = _build.library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.launch_flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                     B, Sq, Skv, H, Kh, hd, int(causal), _DTYPES[q.dtype],
+                                     hd ** -0.5, stream)
+    _build.check(err, "flash_attention")
+    launches += 1
+    return out

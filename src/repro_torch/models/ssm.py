@@ -1,0 +1,163 @@
+"""Mamba-2 (SSD) block of the LM slice, after the JAX package's ``models/ssm.py``.
+
+Forward and prefill start from a zero state and run the SSD scan op (the
+CUDA kernel on the card, the per-timestep recurrence on the CPU), which also
+returns the final state that decode continues from.  Decode is the O(1)
+recurrence in plain torch, as in the reference.
+
+The reference's blocked XLA form (``_ssd_chunked``) and its start from a
+non-zero state (chunked prefill) are not ported: nothing in the slice
+starts a sequence from a non-zero state.
+
+State layout:
+  conv state : (B, K-1, conv_dim) float32  -- last K-1 pre-conv inputs
+  ssm state  : (B, H, P, N) float32        -- per-head outer-product state
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.ssd_scan.ops import ssd_scan
+from .config import ModelConfig
+from .layers import normal, rms_norm
+
+__all__ = ["SSMState", "init_ssm_block", "init_ssm_state", "ssm_block", "ssm_block_decode"]
+
+
+class SSMState(NamedTuple):
+    conv: torch.Tensor   # (B, K-1, conv_dim), or stacked (L, ...)
+    h: torch.Tensor      # (B, H, P, N), or stacked (L, ...)
+
+
+def _conv_dim(cfg: ModelConfig) -> int:
+    return cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+
+
+def init_ssm_block(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    D, d_inner, H = cfg.d_model, cfg.d_inner, cfg.ssm_heads
+    G, N = cfg.ssm_groups, cfg.ssm_state
+    cd = _conv_dim(cfg)
+    dev, pdt = gen.device, cfg.param_dtype
+    f32 = dict(dtype=torch.float32, device=dev)
+    return {
+        "norm": torch.zeros((D,), dtype=pdt, device=dev),
+        "in_proj": normal(gen, (D, 2 * d_inner + 2 * G * N + H), cfg, D ** -0.5),
+        "conv_w": normal(gen, (cfg.ssm_conv, cd), cfg, 0.2),
+        "conv_b": torch.zeros((cd,), dtype=pdt, device=dev),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, H, **f32)).to(pdt),
+        "D_skip": torch.ones((H,), dtype=pdt, device=dev),
+        "dt_bias": torch.full((H,), math.log(math.expm1(0.01)), **f32).to(pdt),
+        "gated_norm": torch.zeros((d_inner,), dtype=pdt, device=dev),
+        "out_proj": normal(gen, (d_inner, D), cfg, d_inner ** -0.5),
+    }
+
+
+def init_ssm_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
+                   device=None) -> SSMState:
+    return SSMState(
+        conv=torch.zeros((batch, cfg.ssm_conv - 1, _conv_dim(cfg)), dtype=dtype, device=device),
+        h=torch.zeros((batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state), dtype=dtype,
+                      device=device),
+    )
+
+
+def _split_proj(zxbcdt: torch.Tensor, cfg: ModelConfig):
+    d_inner, G, N = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state
+    z = zxbcdt[..., :d_inner]
+    xBC = zxbcdt[..., d_inner:2 * d_inner + 2 * G * N]
+    dt = zxbcdt[..., 2 * d_inner + 2 * G * N:]
+    return z, xBC, dt
+
+
+def _causal_conv(xBC: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv over time, tap by tap as the reference sums it.
+    xBC (B, S, Cd); w (K, Cd)."""
+    K, S = w.shape[0], xBC.shape[1]
+    pad = F.pad(xBC, (0, 0, K - 1, 0))
+    out = torch.zeros_like(xBC)
+    for i in range(K):
+        out = out + pad[:, i:i + S, :] * w[i][None, None, :]
+    return F.silu(out + b[None, None, :])
+
+
+def ssm_block(p, x: torch.Tensor, cfg: ModelConfig):
+    """Mamba-2 block from a zero state (pre-norm, residual outside).
+    x (B, S, D) -> (out (B, S, D), the state after the sequence)."""
+    B_, S, D = x.shape
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    zxbcdt = h @ p["in_proj"].to(h.dtype)
+    z, conv_in, dt = _split_proj(zxbcdt, cfg)
+    xBC = _causal_conv(conv_in, p["conv_w"].to(conv_in.dtype), p["conv_b"].to(conv_in.dtype))
+
+    d_inner, H, P = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
+    G, N = cfg.ssm_groups, cfg.ssm_state
+    # views into the conv output; the kernel reads them through their strides
+    xs = xBC[..., :d_inner].reshape(B_, S, H, P)
+    Bm = xBC[..., d_inner:d_inner + G * N].reshape(B_, S, G, N)
+    Cm = xBC[..., d_inner + G * N:].reshape(B_, S, G, N)
+    dt = F.softplus(dt.float() + p["dt_bias"].float())
+    A = -torch.exp(p["A_log"].float())
+
+    y, h_final = ssd_scan(xs, dt, A, Bm, Cm, block_q=min(cfg.ssm_chunk, S))
+    y = y + xs * p["D_skip"].to(y.dtype)[None, None, :, None]
+    y = y.reshape(B_, S, d_inner)
+    y = rms_norm(y * F.silu(z), p["gated_norm"], cfg.norm_eps)
+    out = y @ p["out_proj"].to(y.dtype)
+
+    K = cfg.ssm_conv
+    if S >= K - 1:
+        conv_tail = conv_in[:, S - (K - 1):, :]
+    else:
+        conv_tail = torch.cat([conv_in.new_zeros((B_, K - 1 - S, conv_in.shape[2])), conv_in],
+                              dim=1)
+    return out, SSMState(conv=conv_tail.float(), h=h_final)
+
+
+def _heads_from_groups(t: torch.Tensor, H: int) -> torch.Tensor:
+    """(B, G, N) -> (B, H, N), head h reading group h // (H / G), as
+    ``jnp.repeat(t, H // G, axis=1)``.  ``repeat_interleave`` with an int
+    count would read its output size back from a CUDA device and stall the
+    decode loop."""
+    B_, G, N = t.shape
+    return t[:, :, None, :].expand(B_, G, H // G, N).reshape(B_, H, N)
+
+
+def ssm_block_decode(p, x: torch.Tensor, cfg: ModelConfig, state: SSMState):
+    """One-token decode.  x (B, 1, D) -> (out (B, 1, D), state), where
+    ``state`` is updated in place."""
+    B_, S, D = x.shape
+    if S != 1:
+        raise ValueError(f"ssm_block_decode takes one token, got S={S}")
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    zxbcdt = h @ p["in_proj"].to(h.dtype)
+    z, xBC, dt = _split_proj(zxbcdt, cfg)
+
+    # conv over (cached K-1 inputs ++ current)
+    window = torch.cat([state.conv, xBC.to(state.conv.dtype)], dim=1)      # (B, K, Cd)
+    w = p["conv_w"].to(window.dtype)
+    conv_out = torch.einsum("bkc,kc->bc", window, w) + p["conv_b"].to(window.dtype)
+    xBC_t = F.silu(conv_out)[:, None, :].to(x.dtype)                      # (B, 1, Cd)
+
+    d_inner, H, P = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
+    G, N = cfg.ssm_groups, cfg.ssm_state
+    xs = xBC_t[..., :d_inner].reshape(B_, H, P)
+    Bh = _heads_from_groups(xBC_t[..., d_inner:d_inner + G * N].reshape(B_, G, N), H)
+    Ch = _heads_from_groups(xBC_t[..., d_inner + G * N:].reshape(B_, G, N), H)
+    dt1 = F.softplus(dt[:, 0, :].float() + p["dt_bias"].float())           # (B, H)
+    A = -torch.exp(p["A_log"].float())
+    a = torch.exp(dt1 * A[None, :])
+
+    u = xs.float() * dt1[..., None]                                       # (B, H, P)
+    h_new = state.h * a[..., None, None] + u[..., :, None] * Bh.float()[:, :, None, :]
+    y = torch.einsum("bhpn,bhn->bhp", h_new, Ch.float()).to(x.dtype)
+    y = y + xs * p["D_skip"].to(y.dtype)[None, :, None]
+    y = y.reshape(B_, 1, d_inner)
+    y = rms_norm(y * F.silu(z), p["gated_norm"], cfg.norm_eps)
+    out = y @ p["out_proj"].to(y.dtype)
+    state.conv.copy_(window[:, 1:, :])
+    state.h.copy_(h_new)
+    return out, state

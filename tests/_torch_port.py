@@ -1,6 +1,7 @@
 """Shared helpers of the PyTorch-port parity tests (``tests/test_torch_*.py``).
 
-Tensors cross between the two packages as numpy arrays.  ``JaxDraws`` is a
+Tensors cross between the two packages as numpy arrays; ``port_config``
+and ``port_lm_params`` carry a reference LM config and its params across.  ``JaxDraws`` is a
 draw provider for ``repro_torch.core.gen_dst`` that replays the JAX
 package's own key splits (``repro/core/gen_dst.py``), so the port's GA runs
 on exactly the random numbers the reference's GA draws from the same key.
@@ -31,10 +32,30 @@ def t(x, dtype=None, device="cpu") -> torch.Tensor:
 
 
 def np_(x) -> np.ndarray:
-    """torch tensor or JAX array -> numpy."""
+    """torch tensor or JAX array -> numpy (bfloat16 as float32)."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        x = x.detach().cpu()
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
     return np.asarray(x)
+
+
+def port_config(jcfg):
+    """The port's ``ModelConfig`` with the fields of the reference's ``jcfg``
+    that it keeps (dtype names become ``torch.dtype``s)."""
+    import dataclasses
+
+    from repro_torch.models.config import ModelConfig
+    kept = {f.name for f in dataclasses.fields(ModelConfig)}
+    fields = {k: v for k, v in dataclasses.asdict(jcfg).items() if k in kept}
+    for k in ("dtype", "param_dtype", "logit_dtype"):
+        fields[k] = getattr(torch, fields[k])
+    return ModelConfig(**fields)
+
+
+def port_lm_params(jparams, cfg, device="cpu"):
+    """The reference's LM params as the port's (``convert.lm_params_from_numpy``)."""
+    from repro_torch.convert import lm_params_from_numpy
+    return lm_params_from_numpy(jax.tree.map(np.asarray, jparams), cfg, device)
 
 
 # ---------------------------------------------------------------------------

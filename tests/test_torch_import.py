@@ -25,6 +25,9 @@ def test_port_imports_neither_jax_nor_reference():
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "             or k == 'repro' or k.startswith('repro.'))\n"
         "assert len(names) >= 20, names\n"
+        "for m in ('models.lm', 'models.ssm', 'configs.zamba2_2p7b', 'launch.serve',\n"
+        "          'kernels.flash_attention.kernel', 'kernels.ssd_scan.kernel'):\n"
+        "    assert 'repro_torch.' + m in names, m\n"
         "assert not bad, bad\n"
         "print(len(names))\n"
     )
@@ -47,8 +50,11 @@ def _small_data():
 
 
 def test_entry_points_raise_without_a_card(no_cuda):
+    from repro_torch import configs
     from repro_torch.automl.engine import AutoMLConfig, automl_fit
+    from repro_torch.convert import lm_params_from_numpy
     from repro_torch.core.gen_dst import gen_dst
+    from repro_torch.launch import serve
     from repro_torch.core.measures import factorize
     from repro_torch.core.plan import execute, plan
     X, y = _small_data()
@@ -59,6 +65,8 @@ def test_entry_points_raise_without_a_card(no_cuda):
         lambda: automl_fit(X, y, config=AutoMLConfig(n_trials=2, rungs=(2,))),
         lambda: execute(plan("gen_dst"), X, y),
         lambda: factorize(X, y, device="cuda"),
+        lambda: serve.main(["--arch", "mamba2-130m"]),
+        lambda: lm_params_from_numpy({}, configs.get_arch("mamba2-130m").smoke),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -88,29 +96,37 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         fused_delta_fitness_cuda(counts, z, z, torch.zeros(3), z.bool(), torch.zeros(1))
 
 
+def _run_every_op(device):
+    """One call of each kernel's public op on ``device``."""
+    from repro_torch.kernels.entropy.ops import population_histogram
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.gen_dst.ops import fused_delta_fitness
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    sub = torch.randint(0, 8, (3, 5, 2), dtype=torch.int32, device=device)
+    counts = population_histogram(sub, 8)
+    z = torch.zeros((3, 2), dtype=torch.int32, device=device)
+    fused_delta_fitness(counts, z, z, torch.zeros(3, device=device),
+                        torch.ones((3, 2), dtype=torch.bool, device=device), 0.5)
+    q = torch.randn((1, 4, 2, 8), device=device)
+    flash_attention(q, q, q)
+    bm = torch.randn((1, 4, 1, 8), device=device)
+    ssd_scan(q, torch.rand((1, 4, 2), device=device), -torch.rand(2, device=device), bm, bm)
+
+
 def test_ops_dispatch_on_device_and_count_no_cpu_launch():
     from repro_torch import kernels
-    from repro_torch.kernels.entropy.ops import population_histogram
-    from repro_torch.kernels.gen_dst.ops import fused_delta_fitness
     kernels.reset_launch_counts()
-    sub = torch.randint(0, 8, (3, 5, 2), dtype=torch.int32)
-    counts = population_histogram(sub, 8)
-    z = torch.zeros((3, 2), dtype=torch.int32)
-    fused_delta_fitness(counts, z, z, torch.zeros(3), torch.ones((3, 2), dtype=torch.bool), 0.5)
-    assert kernels.launch_counts() == {"masked_histogram": 0, "fused_delta_fitness": 0}
+    _run_every_op("cpu")
+    assert kernels.launch_counts() == {"masked_histogram": 0, "fused_delta_fitness": 0,
+                                       "flash_attention": 0, "ssd_scan": 0}
 
 
 @requires_cuda
 def test_cuda_kernels_launch_and_count():
     skip_without_cuda()
     from repro_torch import kernels
-    from repro_torch.kernels.entropy.ops import population_histogram
-    from repro_torch.kernels.gen_dst.ops import fused_delta_fitness
     kernels.reset_launch_counts()
-    sub = torch.randint(0, 8, (3, 5, 2), dtype=torch.int32, device="cuda")
-    counts = population_histogram(sub, 8)
-    z = torch.zeros((3, 2), dtype=torch.int32, device="cuda")
-    fused_delta_fitness(counts, z, z, torch.zeros(3, device="cuda"),
-                        torch.ones((3, 2), dtype=torch.bool, device="cuda"), 0.5)
+    _run_every_op("cuda")
     torch.cuda.synchronize()
-    assert kernels.launch_counts() == {"masked_histogram": 1, "fused_delta_fitness": 1}
+    assert kernels.launch_counts() == {"masked_histogram": 1, "fused_delta_fitness": 1,
+                                       "flash_attention": 1, "ssd_scan": 1}
