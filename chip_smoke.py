@@ -31,15 +31,19 @@ Phases, in order; any failure exits non-zero and prints no result:
    the kernels with the most device time.
 7. The flash-attention kernel against its plain version at zamba2's prefill
    shape (B 4, S 1024, 32 heads, hd 80, bf16, causal) and at edge shapes
-   (GQA, MQA with hd 256, ragged S, float32, non-causal): bf16 within 2e-2,
-   float32 within 2e-5.  Timed beside its plain version,
-   ``scaled_dot_product_attention`` and its bound.
+   (GQA, MQA with hd 256, ragged S, float32, non-causal; for the bf16 wgmma
+   body also hd 80 with Sq no multiple of its 128-row tile, Skv > Sq
+   non-causal, ragged hd 256 MQA, and hd 20, which the wrapper pads): bf16
+   within 2e-2, float32 within 2e-5.  Timed beside its plain version,
+   ``scaled_dot_product_attention`` and its bound, with its achieved TFLOP/s
+   and share of the bound.
 8. The SSD-scan kernel against its plain version at zamba2's shape (B 4,
-   S 1024, 80 heads, P = N = 64, block_q 128, which the kernel walks in
-   chunks of 64; bf16) and at edge shapes (G > 1 with a partial chunk, small
-   Q, float32, N 128): y within 5e-2 (bf16) and 1e-3 (float32) of the plain
-   version run in float32 on the same values, the final state within 1e-3
-   relative.  Timed the same way.
+   S 1024, 80 heads, P = N = 64, bf16: the chunked body, chunks of 128) and
+   at edge shapes (G > 1 with a partial chunk, small Q, float32, N 128, and
+   for the chunked body S < chunk and N 128): y within 5e-2 (bf16) and 1e-3
+   (float32) of the plain version run in float32 on the same values, the
+   final state within 1e-3 relative.  Timed the same way, with the device
+   time of each of the chunked body's three kernels by name.
 9. The LM serving path: the hybrid smoke config in float32 on the card and
    the CPU (logits within 1e-4, greedy tokens equal); then
    ``launch.serve.main`` for zamba2-2.7b at full width (batch 4, prompt 1024,
@@ -239,6 +243,10 @@ def phase7_flash_attention(torch, dev) -> dict:
         (2, 256, 192, 8, 2, 128, bf16, False),     # non-causal
         (2, 130, 130, 4, 2, 16, f32, False),       # smoke widths
         (2, 128, 128, 4, 1, 32, f32, True),
+        (3, 200, 200, 32, 32, 80, bf16, True),     # hd 80, Sq no multiple of 128
+        (2, 200, 333, 8, 2, 80, bf16, False),      # Skv > Sq, non-causal
+        (2, 333, 333, 8, 1, 256, bf16, True),      # MQA, hd 256, ragged
+        (2, 70, 70, 4, 2, 20, bf16, True),         # hd 20: padded to 24 by the wrapper
     ]
     main_err = None
     for i, (B, Sq, Skv, H, Kh, hd, dtype, causal) in enumerate(shapes):
@@ -271,10 +279,12 @@ def phase7_flash_attention(torch, dev) -> dict:
     n_ops = 4 * B * H * hd * S * (S + 1) // 2
     b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_OPS_PER_S)
     dev_ms = kernel_device_ms(torch, lambda: flash_attention_cuda(q, k, v, causal=True),
-                              "flash_attention_kernel", calls=20)
+                              "flash_attention_wgmma_kernel", calls=20)
     print(f"flash_attention (B={B}, S={S}, H={H}, hd={hd}, bf16, causal): kernel "
           f"{ms_k:.4f} ms, device {dev_ms} ms, plain {ms_p:.4f} ms, sdpa {ms_l:.4f} ms, "
           f"bound {b_ms:.5f} ms ({b_by})")
+    print(f"  achieved {n_ops / (ms_k * 1e-3) / 1e12:.1f} TFLOP/s (causal operations), "
+          f"{b_ms / ms_k:.3f} of the bound; kernel / sdpa {ms_k / ms_l:.3f}")
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:78",
@@ -313,6 +323,9 @@ def phase8_ssd_scan(torch, dev) -> dict:
         (2, 64, 8, 16, 2, 16, 8, f32),             # small Q (smoke chunk)
         (1, 16, 4, 8, 1, 8, 4, f32),               # serving-test widths
         (2, 512, 24, 64, 1, 128, 256, f32),        # mamba2-130m: N 128, Q 256 halved
+        (2, 50, 80, 64, 1, 64, 128, bf16),         # S < chunk: one partial chunk
+        (2, 512, 24, 64, 1, 128, 256, bf16),       # N 128: chunks of 64 fit
+        (2, 64, 8, 16, 2, 16, 8, bf16),            # smoke widths, G = 2
     ]
     main_err = None
     for i, (B, S, H, P, G, N, Q, dtype) in enumerate(shapes):
@@ -343,17 +356,23 @@ def phase8_ssd_scan(torch, dev) -> dict:
     # x, dt, a, B and C read once, y and the final state written once; per
     # chunk the kernel walks (Qk), the C B^T and PV products over the full
     # Qk x Qk tile and the two (Qk, P, N) state products
-    Qk = chunk_for(Q, S, P, N)
+    Qk = chunk_for(Q, S, P, N, bf16=dtype == bf16)
     es = x.element_size()
     n_bytes = (2 * B * S * H * P * es + B * S * H * 4 + H * 4 + 2 * B * S * G * N * es
                + B * H * P * N * 4)
     n_ops = B * H * math.ceil(S / Qk) * 2 * (Qk * Qk * N + Qk * Qk * P + 2 * Qk * P * N)
     b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_OPS_PER_S)
-    dev_ms = kernel_device_ms(torch, lambda: ssd_scan_cuda(x, dt, a, bm, cm, block_q=Q),
-                              "ssd_scan_kernel", calls=20)
+    parts = {name: kernel_device_ms(torch, lambda: ssd_scan_cuda(x, dt, a, bm, cm, block_q=Q),
+                                    name, calls=20)
+             for name in ("ssd_chunk_state_kernel", "ssd_state_pass_kernel",
+                          "ssd_chunk_scan_kernel")}
+    dev_ms = sum(parts.values()) if all(parts.values()) else None
     print(f"ssd_scan (B={B}, S={S}, H={H}, P={P}, N={N}, block_q={Q}, kernel chunk {Qk}, "
           f"bf16): kernel {ms_k:.4f} ms, device {dev_ms} ms, plain {ms_p:.4f} ms, "
           f"bound {b_ms:.5f} ms ({b_by})")
+    print("  device ms per launch: " + ", ".join(f"{k} {v}" for k, v in parts.items()))
+    print(f"  achieved {n_ops / (ms_k * 1e-3) / 1e12:.1f} TFLOP/s (chunk products), "
+          f"{b_ms / ms_k:.3f} of the bound")
     return {"name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan/kernel.py:62",
             "launches": None, "max_abs_err": main_err, "ms": ms_k, "plain_ms": ms_p,

@@ -3,7 +3,11 @@
 Every ``csrc/*.cu`` source is compiled for Hopper (``sm_90a``) into a shared
 library of its own with a plain C interface, one ``nvcc`` process per source,
 all started together; ``ctypes`` loads them.  Nothing includes PyTorch's
-headers, so a build takes seconds.
+headers, so a build takes seconds.  Nothing is linked beyond the CUDA
+runtime either: the one libcuda function a kernel needs (the TMA
+descriptor's ``cuTensorMapEncodeTiled``) is fetched at run time through the
+runtime's entry-point query.  Headers shared by the sources
+(``csrc/*.cuh``) are part of every source's hash.
 
 The build happens at the first kernel launch, into
 ``build/repro_torch_kernels/<hash of the sources>/`` at the repository root,
@@ -47,7 +51,7 @@ _SIGNATURES = {
     "ssd_scan":
         [_C_PTR, _C_PTR, _C_PTR, _C_PTR, _C_PTR, _C_PTR, _C_PTR,
          _C_INT, _C_INT, _C_INT, _C_INT, _C_INT, _C_INT, _C_INT,
-         _C_I64, _C_I64, _C_I64, _C_I64, _C_INT, _C_PTR],
+         _C_I64, _C_I64, _C_I64, _C_I64, _C_PTR, _C_INT, _C_PTR],
 }
 
 _lib: Optional[types.SimpleNamespace] = None
@@ -67,7 +71,7 @@ def _sources() -> list[Path]:
 
 def _digest(sources: list[Path]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

@@ -4,11 +4,19 @@ Replaces the JAX package's Pallas kernel ``flash_attention_pallas``
 (``src/repro/kernels/flash_attention/kernel.py:78``).  The source states the
 design and the bound.
 
+The launcher routes by dtype: bfloat16 goes to the ``wgmma`` body (TMA-fed,
+128 query rows per block), float32 to the CUDA-core body.  The bfloat16 body
+needs hd a multiple of 8 (its TMA strides are multiples of 16 bytes) and
+16-byte aligned pointers: other widths are zero-padded here (a zero column
+adds nothing to a score, and the scale stays ``hd ** -0.5`` of the real hd),
+and the padded columns of the output are dropped.
+
 Tolerance against ``ref.attention_ref``: the kernel sums the scores and the
-weighted values in float32 in another order (online softmax over 64-key
+weighted values in float32 in another order (online softmax over key
 tiles), so float32 outputs agree within 2e-5 and bfloat16 outputs within
-2e-2 max-abs (one bf16 rounding), as the reference's
-``tests/test_kernels.py:145`` holds its Pallas kernel.
+2e-2 max-abs (one bf16 rounding of the outputs; the bf16 body also rounds
+the weights to bf16 before PV, as the model's ``_sdpa`` does), as the
+reference's ``tests/test_kernels.py:145`` holds its Pallas kernel.
 
 ``launches`` counts the kernel's launches; it is incremented only where the
 kernel is launched.
@@ -49,14 +57,27 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"outside 0 < hd <= {MAX_HEAD_DIM}, B*H <= 65535, Skv > 0")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention_cuda: tensors must be contiguous")
-    out = torch.empty_like(q)
     if B * Sq * H == 0:
-        return out
+        return torch.empty_like(q)
+    scale = hd ** -0.5
+    if q.dtype == torch.bfloat16:
+        q, k, v = (_tma_ready(x) for x in (q, k, v))
+    out = torch.empty_like(q)
     lib = _build.library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.launch_flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                     B, Sq, Skv, H, Kh, hd, int(causal), _DTYPES[q.dtype],
-                                     hd ** -0.5, stream)
+                                     B, Sq, Skv, H, Kh, q.shape[3], int(causal),
+                                     _DTYPES[q.dtype], scale, stream)
     _build.check(err, "flash_attention")
     launches += 1
-    return out
+    return out if out.shape[3] == hd else out[..., :hd].contiguous()
+
+
+def _tma_ready(x: torch.Tensor) -> torch.Tensor:
+    """x with its last dim zero-padded to a multiple of 8 and its data 16-byte
+    aligned, as the bfloat16 body's tensor maps need (a no-op for the
+    model's widths)."""
+    pad = -x.shape[3] % 8
+    if pad:
+        return torch.nn.functional.pad(x, (0, pad))
+    return x if x.data_ptr() % 16 == 0 else x.clone()

@@ -6,9 +6,17 @@ and the bound.  Unlike the TPU kernel it reads the model layout in place
 (x (B, S, H, P), B/C (B, S, G, N), through their batch and position strides),
 takes a partial last chunk, and also returns the final state.
 
+The launcher routes by dtype: bfloat16 goes to the chunked body (three
+kernels: chunk states, state passing, chunk scan; every chunk in parallel,
+products on the tensor cores), float32 to the body that walks the chunks of
+one (batch, head) in one block.  The chunked body keeps the chunk states in
+float32 scratch allocated here, B H ceil(S/Q) (2 P N + 1) floats: the
+chunk states, the entering states as bf16 hi/lo planes, the chunk decays.
+
 Tolerance against ``ref.ssd_scan_model_ref`` (the per-timestep recurrence)
 run in float32 on the same values: the chunked form sums in another order,
-all in float32, so y agrees within 1e-3 in float32 and, after the one
+in float32 (the bfloat16 body's computed operands carry ~16 bits as bf16
+hi + lo pairs), so y agrees within 1e-3 in float32 and, after the one
 rounding of bfloat16 outputs, within 5e-2 (``tests/test_ssd_kernel.py:35``
 holds the Pallas kernel so); the final state within 1e-3 relative.
 
@@ -26,7 +34,9 @@ __all__ = ["ssd_scan_cuda", "chunk_for", "launches"]
 launches = 0
 _SMEM_LIMIT = 227 * 1024        # dynamic shared memory a Hopper block may use
 _TI = 32                        # rows of the decay-weighted tile (csrc/ssd_scan.cu)
-MAX_CHUNK = 64                  # the fastest chunk at zamba2's shape on the H100
+MAX_CHUNK = 64                  # float32 body: the fastest chunk at zamba2's shape on the H100
+BF16_CHUNK = 128                # bfloat16 body: 64 or 128 (csrc/ssd_scan.cu instantiates both)
+_HB = 4                         # heads per block of the bfloat16 body (csrc HB)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -34,11 +44,38 @@ def _smem_bytes(Q: int, P: int, N: int) -> int:
     return 4 * (2 * Q * (N + 1) + Q * (P + 1) + P * (N + 1) + _TI * (Q + 1) + 4 * Q)
 
 
-def chunk_for(block_q: int, S: int, P: int, N: int) -> int:
-    """The chunk the kernel walks: ``min(block_q, S, 64)``, halved until its
-    tiles fit shared memory.  The chunk length changes only the summation
-    order; 64 halves the quadratic work of 128 and lets three blocks share
-    an SM."""
+def _r32(v: int) -> int:
+    return -(-v // 32) * 32
+
+
+def _bf16_smem_bytes(Q: int, P: int, N: int) -> int:
+    """Shared memory of the chunked body's chunk-scan kernel, its largest
+    (``ScanSmem`` in csrc/ssd_scan.cu): C and B, the lower 16 x 16 tiles of
+    C B^T in float32, two buffers of x and of the entering state's bf16 hi/lo
+    planes, la and dt, and two buffers of decay tables."""
+    ldc, ldx, nb = _r32(N) + 8, _r32(P) + 8, Q // 16
+    return (4 * Q * ldc + 16 * 24 * 4 * nb * (nb + 1) // 2 + 4 * Q * ldx + 8 * _r32(P) * ldc
+            + 8 * _HB * Q + 8 * Q * nb + 8 * Q)
+
+
+def chunk_for(block_q: int, S: int, P: int, N: int, bf16: bool = False) -> int:
+    """The chunk the kernel walks.  The chunk length changes only the
+    summation order.
+
+    float32 body: ``min(block_q, S, 64)``, halved until its tiles fit shared
+    memory; 64 halves the quadratic CUDA-core work of 128 and lets three
+    blocks share an SM.
+
+    bfloat16 body: ``BF16_CHUNK`` whatever block_q and S (S < chunk is one
+    partial chunk), or 64 if 128 does not fit shared memory.  Its products
+    are on the tensor cores, so the quadratic work no longer sets the chunk:
+    128 halves the chunk states that pass through the L2 and the sequential
+    steps of the state passing."""
+    if bf16:
+        for Q in (BF16_CHUNK, 64):
+            if _bf16_smem_bytes(Q, P, N) <= _SMEM_LIMIT:
+                return Q
+        raise ValueError(f"ssd_scan_cuda: P={P}, N={N} do not fit shared memory")
     Q = max(1, min(block_q, S, MAX_CHUNK))
     while Q > 1 and _smem_bytes(Q, P, N) > _SMEM_LIMIT:
         Q //= 2
@@ -84,13 +121,16 @@ def ssd_scan_cuda(x, dt, a, bm, cm, *, block_q: int = 128):
     h = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
     if B * S * H == 0:
         return y, h.zero_()
-    Q = chunk_for(block_q, S, P, N)
+    bf16 = x.dtype == torch.bfloat16
+    Q = chunk_for(block_q, S, P, N, bf16=bf16)
+    scratch = (torch.empty(B * H * -(-S // Q) * (2 * P * N + 1), dtype=torch.float32,
+                           device=x.device) if bf16 else None)
     lib = _build.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.launch_ssd_scan(x.data_ptr(), dt.data_ptr(), a.data_ptr(), bm.data_ptr(),
                               cm.data_ptr(), y.data_ptr(), h.data_ptr(), B, S, H, G, P, N, Q,
                               x.stride(0), x.stride(1), bm.stride(0), bm.stride(1),
-                              _DTYPES[x.dtype], stream)
+                              scratch.data_ptr() if bf16 else None, _DTYPES[x.dtype], stream)
     _build.check(err, "ssd_scan")
     launches += 1
     return y, h

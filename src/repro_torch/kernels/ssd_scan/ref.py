@@ -3,12 +3,18 @@
 The CPU path and, on the card, the oracle ``chip_smoke.py`` holds the CUDA
 kernel to.  Same semantics as the JAX package's ``kernels/ssd_scan/ref.py``,
 and it also returns the final state, which prefill hands to decode.
+
+``ssd_scan_chunked_ref`` is the chunked state-passing form that the bfloat16
+CUDA body computes, as three plain passes (``ssd_chunk_states``,
+``ssd_state_passing``, ``ssd_chunk_scan``), so that its algebra is tested
+where there is no card.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["ssd_scan_ref", "ssd_scan_model_ref"]
+__all__ = ["ssd_scan_ref", "ssd_scan_model_ref", "ssd_chunk_states", "ssd_state_passing",
+           "ssd_chunk_scan", "ssd_scan_chunked_ref"]
 
 
 def ssd_scan_ref(x, dt, a, bm, cm):
@@ -44,3 +50,71 @@ def ssd_scan_model_ref(x, dt, a, bm, cm):
     cmh = cm.repeat_interleave(rep, dim=2).permute(0, 2, 1, 3).reshape(B * H, S, N)
     y, h = ssd_scan_ref(xf, dtf, af, bmh, cmh)
     return y.reshape(B, H, S, P).permute(0, 2, 1, 3).contiguous(), h.reshape(B, H, P, N)
+
+
+def _chunked(t: torch.Tensor, chunk: int) -> torch.Tensor:
+    """(B, S, ...) float32 -> (B, nc, chunk, ...), zero-padded past S: a zero
+    dt adds no decay and a zero x or B adds no input."""
+    B, S = t.shape[:2]
+    nc = -(-S // chunk)
+    t = t.float()
+    if nc * chunk != S:
+        t = torch.cat([t, t.new_zeros((B, nc * chunk - S) + t.shape[2:])], dim=1)
+    return t.reshape((B, nc, chunk) + t.shape[2:])
+
+
+def _log_decay(dt, a, chunk):
+    """la (B, nc, Q, H): the cumulative log-decay from each chunk's start."""
+    return torch.cumsum(_chunked(dt, chunk) * a.float(), dim=2)
+
+
+def _per_head(m: torch.Tensor, H: int) -> torch.Tensor:
+    """(B, nc, Q, G, N) -> (B, nc, Q, H, N): head h reads group h // (H / G)."""
+    return m.repeat_interleave(H // m.shape[3], dim=3)
+
+
+def ssd_chunk_states(x, dt, a, bm, chunk: int):
+    """Pass 1.  Each chunk's own state s_c = (x * dt * exp(la_last - la))^T B,
+    (B, H, nc, P, N) float32, and its total decay exp(la_last), (B, H, nc)."""
+    la = _log_decay(dt, a, chunk)
+    w = _chunked(dt, chunk) * torch.exp(la[:, :, -1:, :] - la)          # (B, nc, Q, H)
+    u = _chunked(x, chunk) * w[..., None]
+    states = torch.einsum("bcqhp,bcqhn->bhcpn", u, _per_head(_chunked(bm, chunk), x.shape[2]))
+    return states, torch.exp(la[:, :, -1, :]).permute(0, 2, 1)
+
+
+def ssd_state_passing(states, decay):
+    """Pass 2.  The state entering each chunk, H_0 = 0 and
+    H_{c+1} = decay_c H_c + s_c, (B, H, nc, P, N); and the final state."""
+    h = torch.zeros_like(states[:, :, 0])
+    entering = torch.empty_like(states)
+    for c in range(states.shape[2]):
+        entering[:, :, c] = h
+        h = decay[:, :, c, None, None] * h + states[:, :, c]
+    return entering, h
+
+
+def ssd_chunk_scan(x, dt, a, bm, cm, entering, chunk: int):
+    """Pass 3.  y = tril(C B^T o exp(la_i - la_j)) (x dt) + exp(la) o (C H_c^T),
+    in x's dtype.  exp(la_i - la_j) is taken only for j <= i: above the
+    diagonal it could overflow, and a mask applied after it would make NaN."""
+    B, S, H, P = x.shape
+    la = _log_decay(dt, a, chunk)                                      # (B, nc, Q, H)
+    cmh, bmh = (_per_head(_chunked(m, chunk), H) for m in (cm, bm))    # (B, nc, Q, H, N)
+    cb = torch.einsum("bcihn,bcjhn->bchij", cmh, bmh)
+    diff = la.permute(0, 1, 3, 2)[..., :, None] - la.permute(0, 1, 3, 2)[..., None, :]
+    lower = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device).tril()
+    decay = torch.exp(torch.where(lower, diff, torch.full_like(diff, -torch.inf)))
+    u = _chunked(x, chunk) * _chunked(dt, chunk)[..., None]            # (B, nc, Q, H, P)
+    y = torch.einsum("bchij,bcjhp->bcihp", cb * decay, u)
+    y = y + torch.exp(la)[..., None] * torch.einsum("bcihn,bhcpn->bcihp", cmh, entering)
+    return y.reshape(B, -1, H, P)[:, :S].to(x.dtype)
+
+
+def ssd_scan_chunked_ref(x, dt, a, bm, cm, *, chunk: int):
+    """Model layout, as ``ssd_scan_model_ref``, by the three passes: y
+    (B, S, H, P) in x's dtype and the final state (B, H, P, N) float32.  S
+    need not be a multiple of ``chunk``."""
+    states, decay = ssd_chunk_states(x, dt, a, bm, chunk)
+    entering, h = ssd_state_passing(states, decay)
+    return ssd_chunk_scan(x, dt, a, bm, cm, entering, chunk), h

@@ -83,6 +83,10 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     (2, 300, 300, 32, 32, 80, True, "bfloat16"),
     (1, 200, 333, 8, 1, 256, True, "float32"),
     (2, 128, 128, 32, 8, 128, False, "bfloat16"),
+    (3, 200, 200, 32, 32, 80, True, "bfloat16"),    # hd 80, Sq no multiple of 128
+    (2, 200, 333, 8, 2, 80, False, "bfloat16"),     # Skv > Sq, non-causal
+    (2, 333, 333, 8, 1, 256, True, "bfloat16"),     # MQA, hd 256, ragged
+    (2, 70, 70, 4, 2, 20, True, "bfloat16"),        # hd 20: the wrapper pads it
 ])
 def test_cuda_kernel_matches_plain(B, Sq, Skv, H, Kh, hd, causal, dtype):
     skip_without_cuda()

@@ -3,7 +3,9 @@
 On the CPU the port's op runs its plain version (the per-timestep
 recurrence, which also returns the final state); it is held to the
 reference's ``ssd_scan_ref``, its Pallas kernel in interpret mode, its
-model-layout op and the model's chunked form's final state.  The CUDA leg
+model-layout op and the model's chunked form's final state.  The chunked
+plain version (the three passes the bfloat16 CUDA body runs) is held to the
+same references, so the algebra of the decomposition is tested here.  The CUDA leg
 compares the hand-written kernel with the plain version and skips without a
 card.
 
@@ -22,7 +24,9 @@ from repro.models.config import ModelConfig as JModelConfig
 from repro.models.ssm import _ssd_chunked
 from repro_torch.kernels.ssd_scan.kernel import chunk_for, ssd_scan_cuda
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
-from repro_torch.kernels.ssd_scan.ref import ssd_scan_model_ref, ssd_scan_ref
+from repro_torch.kernels.ssd_scan.ref import (ssd_chunk_states, ssd_scan_chunked_ref,
+                                              ssd_scan_model_ref, ssd_scan_ref,
+                                              ssd_state_passing)
 from _torch_port import np_, requires_cuda, skip_without_cuda
 
 TOL = {"float32": 1e-3, "bfloat16": 5e-2}
@@ -119,6 +123,63 @@ def test_chunk_fits_shared_memory():
     assert chunk_for(64, 1024, 64, 512) == 16         # wide state: halved to fit
     with pytest.raises(ValueError, match="shared memory"):
         chunk_for(128, 1024, 1024, 1024)
+    # the bfloat16 body: 128 whatever block_q and S, 64 where 128 does not fit
+    assert chunk_for(128, 1024, 64, 64, bf16=True) == 128      # zamba2
+    assert chunk_for(8, 16, 16, 16, bf16=True) == 128          # smoke: one partial chunk
+    assert chunk_for(256, 1024, 64, 128, bf16=True) == 64      # mamba2-130m: N 128
+    with pytest.raises(ValueError, match="shared memory"):
+        chunk_for(128, 1024, 256, 256, bf16=True)
+
+
+# (B, S, H, P, G, N, chunk): chunks 8 to 128, G = 1 and G > 1, S a multiple of the chunk
+CHUNKED_CASES = [
+    (2, 64, 4, 8, 1, 16, 8),
+    (2, 96, 4, 8, 2, 8, 32),
+    (1, 128, 6, 16, 3, 8, 64),
+    (1, 256, 4, 8, 1, 16, 128),
+]
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", CHUNKED_CASES)
+def test_chunked_plain_matches_pallas_and_per_step(B, S, H, P, G, N, chunk):
+    """The three passes give the reference's Pallas kernel's y (interpret
+    mode, the same chunk) and the per-step recurrence's y and final state."""
+    jx, tx = _cast(_model_inputs(B, S, H, P, G, N, seed=S + chunk), "float32")
+    y, h = ssd_scan_chunked_ref(*tx, chunk=chunk)
+    assert y.shape == (B, S, H, P) and h.shape == (B, H, P, N)
+    pallas = j_ssd_scan(*jx, use_pallas=True, interpret=True, block_q=chunk)
+    np.testing.assert_allclose(np_(y), np.asarray(pallas), atol=1e-3, rtol=0)
+    y_step, h_step = ssd_scan_model_ref(*tx)
+    np.testing.assert_allclose(np_(y), np_(y_step), atol=1e-3, rtol=0)
+    np.testing.assert_allclose(np_(h), np_(h_step), atol=1e-3, rtol=0)
+
+
+# partial last chunks and S < chunk
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", [(2, 37, 4, 8, 2, 16, 16), (1, 20, 4, 8, 1, 8, 32),
+                                               (2, 100, 4, 8, 4, 8, 128), (1, 130, 2, 8, 1, 8, 64)])
+def test_chunked_plain_takes_partial_chunks(B, S, H, P, G, N, chunk):
+    jx, tx = _cast(_model_inputs(B, S, H, P, G, N, seed=S * G), "float32")
+    y, h = ssd_scan_chunked_ref(*tx, chunk=chunk)
+    np.testing.assert_allclose(np_(y), np.asarray(j_ssd_scan(*jx)), atol=1e-3, rtol=0)
+    np.testing.assert_allclose(np_(h), np_(ssd_scan_model_ref(*tx)[1]), atol=1e-3, rtol=0)
+
+
+def test_state_passing_gives_the_state_at_each_chunk_start():
+    """Pass 2's state entering chunk c is the recurrence's state after the
+    first c chunks, and the reference's ``_ssd_chunked`` ends in the same
+    final state."""
+    B, S, H, P, G, N, Q = 2, 48, 4, 8, 2, 8, 16
+    jx, tx = _cast(_model_inputs(B, S, H, P, G, N, seed=11), "float32")
+    x, dt, a, bm, cm = tx
+    states, decay = ssd_chunk_states(x, dt, a, bm, Q)
+    entering, h = ssd_state_passing(states, decay)
+    assert not entering[:, :, 0].any()
+    for c in range(1, S // Q):
+        _, h_c = ssd_scan_model_ref(x[:, :c * Q], dt[:, :c * Q], a, bm[:, :c * Q], cm[:, :c * Q])
+        np.testing.assert_allclose(np_(entering[:, :, c]), np_(h_c), atol=1e-4, rtol=0)
+    cfg = JModelConfig("t", "ssm", n_layers=1, d_model=16, vocab_size=8, ssm_state=N,
+                       ssm_head_dim=P, ssm_groups=G, ssm_chunk=Q)
+    np.testing.assert_allclose(np_(h), np.asarray(_ssd_chunked(*jx, cfg)[1]), atol=1e-3, rtol=0)
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():
@@ -132,7 +193,10 @@ def test_cuda_wrapper_refuses_cpu_tensors():
 @pytest.mark.parametrize("B,S,H,P,G,N,Q,dtype", [
     (2, 64, 4, 8, 1, 16, 8, "float32"),
     (2, 300, 16, 32, 4, 32, 64, "bfloat16"),
-    (2, 256, 80, 64, 1, 64, 128, "bfloat16"),
+    (2, 256, 80, 64, 1, 64, 128, "bfloat16"),      # zamba2's widths, chunk 128
+    (2, 50, 8, 64, 1, 64, 128, "bfloat16"),        # S < chunk
+    (2, 256, 24, 64, 1, 128, 256, "bfloat16"),     # N 128: chunks of 64
+    (2, 64, 8, 16, 2, 16, 8, "bfloat16"),          # smoke widths, G = 2
 ])
 def test_cuda_kernel_matches_plain(B, S, H, P, G, N, Q, dtype):
     skip_without_cuda()
