@@ -10,13 +10,21 @@ Phases, in order; any failure exits non-zero and prints no result:
    the build of the CUDA kernels from ``src/repro_torch/csrc``, and a probe of
    the machine (host loop speed, wall time per small launch, device copy rate,
    clocks) so that runs on different machines can be told apart.
-2. The masked-histogram kernel against its plain version, on the inputs the
-   main path gives it (paper dataset D1: 100 candidates of 322 rows x 23
-   columns, folded to (322, 2300), B = 256): exact with uniform weights; the
-   padding edges; fractional weights within rtol = atol = 1e-5.  Timed beside
-   its plain version, one ``torch.bincount`` call and its bound.
-3. The fused Gen-DST kernel against its plain version at (100, 23, 256) and at
-   ragged P: counts bit-equal, fitness within 1e-6.  Timed the same way.
+2. The masked-histogram kernel against its plain version, through both of
+   its entries.  The gathered entry, which the main path calls, at paper
+   dataset D1 (100 candidates of 322 rows x 23 columns gathered from the
+   103,904-row table, B = 256) and at edge shapes (ragged P, M and B no
+   multiple of 4, tiles across candidates, padding bins, large B): exact.
+   The unindexed entry on the same fold (322, 2300) and the padding edges:
+   exact with uniform weights, fractional weights within rtol = atol = 1e-5.
+   Timed beside its plain version, one ``torch.bincount`` call and its bound,
+   with its device time and its host time per call.
+3. The fused Gen-DST kernel against its plain version at (100, 23, 256) and
+   at ragged P, and at edge shapes
+   (fractional counts and delta, slabs over 48 KB and over 227 KB, slabs of
+   a size or at an address no multiple of 16 bytes, one column, B no
+   multiple of 4): counts bit-equal, fitness within 1e-6.  Timed the same
+   way.
 4. The small-input check: Gen-DST on the card (kernels) and on the CPU (plain
    versions) from the same draws must find the same subset.  Then a full-size
    search under ``torch.cuda.set_sync_debug_mode("error")``: no operation in
@@ -28,7 +36,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    finite number in [0, 1].
 6. Where the time goes: the Gen-DST phase alone and the whole ``execute``
    again under ``torch.profiler``: the device-busy share of the wall time and
-   the kernels with the most device time.
+   the kernels with the most device time; for Gen-DST also its device
+   operations per generation and B1's and B2's share of its device time.
 7. The flash-attention kernel against its plain version at zamba2's prefill
    shape (B 4, S 1024, 32 heads, hd 80, bf16, causal) and at edge shapes
    (GQA, MQA with hd 256, ragged S, float32, non-causal; for the bf16 wgmma
@@ -164,6 +173,24 @@ def time_ms(torch, fn, label: str, iters: int = 100, repeats: int = 5, warmup: i
     return times[len(times) // 2]
 
 
+def host_us(torch, fn, iters: int = 100, repeats: int = 5) -> float:
+    """Host time per call in microseconds: the host clock around ``iters``
+    back-to-back calls, read before the device is waited for (the launch
+    queue holds them all), so the device's time is left out; the median of
+    ``repeats`` such runs."""
+    for _ in range(10):
+        fn()
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        times.append((time.perf_counter() - t0) / iters * 1e6)
+    torch.cuda.synchronize()
+    return sorted(times)[repeats // 2]
+
+
 def dev_us(e) -> float:
     """Device microseconds of a profiler event (the attribute's name changed
     across torch versions)."""
@@ -184,9 +211,10 @@ def kernel_device_ms(torch, fn, kernel: str, calls: int = 50):
     return sum(dev_us(e) for e in events) / count / 1e3 if count else None
 
 
-def profile_share(torch, run) -> None:
+def profile_share(torch, run) -> list:
     """Run ``run()`` under torch.profiler; print the device-busy share of the
-    wall time and the kernels that took the most device time."""
+    wall time and the kernels that took the most device time.  Returns the
+    profiler's device events (kernels and copies, summed by name)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -199,11 +227,12 @@ def profile_share(torch, run) -> None:
     busy_us = sum(dev_us(e) for e in events)
     if busy_us <= 0:
         print("  profile: no device time recorded (device busy share not measured)")
-        return
+        return events
     print(f"  profile: wall {wall:.3f} s (profiler on), device busy {busy_us / 1e6:.4f} s, "
           f"busy share {busy_us / 1e6 / wall:.4f}")
     for e in sorted(events, key=lambda e: -dev_us(e))[:8]:
         print(f"    {dev_us(e) / 1e3:10.3f} ms  {e.count:7d} x  {e.key[:90]}")
+    return events
 
 
 def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float) -> tuple[float, str]:
@@ -514,7 +543,9 @@ def main() -> None:
         from repro_torch.data.tabular import PAPER_DATASETS, make_dataset, train_test_split
         from repro_torch.device import make_generator, resolve_device
         from repro_torch.kernels import _build
-        from repro_torch.kernels.entropy.kernel import masked_histogram_cuda
+        from repro_torch.kernels.entropy.kernel import (
+            masked_histogram_cuda, population_histogram_rows_cuda,
+        )
         from repro_torch.kernels.entropy.ref import masked_histogram_ref
         from repro_torch.kernels.gen_dst.kernel import fused_delta_fitness_cuda
         from repro_torch.kernels.gen_dst.ref import fused_delta_fitness_ref
@@ -551,19 +582,34 @@ def main() -> None:
     print(f"D1: train rows {N}, columns {M} (target incl.), B {B}, n {n}, m {m}, P {P}")
     gen = make_generator(1234, dev)
     rows = torch.randint(0, N, (P, n), generator=gen, device=dev)
+    rows32 = rows.to(torch.int32)                                 # as Gen-DST holds them
     sub = coded.codes[rows]                                       # (P, n, M)
     flat = sub.permute(1, 0, 2).reshape(n, P * M).contiguous()    # (n, P*M)
     kernels = []
 
+    def gathered_plain(codes_, rows_, bins):
+        """The gathered entry's plain version, ``population_histogram(codes[rows])``
+        with the plain histogram: the gather, the fold (P, n, M) -> (n, P*M)
+        and the scatter."""
+        Pg, ng = rows_.shape
+        f = codes_[rows_.long()].permute(1, 0, 2).reshape(ng, Pg * codes_.shape[1])
+        return masked_histogram_ref(f, torch.ones(ng, device=codes_.device), bins).reshape(
+            Pg, codes_.shape[1], bins)
+
     # --- 2. masked histogram -------------------------------------------------
     ones = torch.ones(n, dtype=torch.float32, device=dev)
     h_k = masked_histogram_cuda(flat, ones, B)
+    h_g = population_histogram_rows_cuda(coded.codes, rows32, B)
     h_r = masked_histogram_ref(flat, ones, B)
     torch.cuda.synchronize()
     if not torch.equal(h_k, h_r):
         fail(f"masked_histogram: not exact at the main shape, max err "
              f"{(h_k - h_r).abs().max().item()}")
-    hist_err = (h_k - h_r).abs().max().item()
+    if not torch.equal(h_g, h_r.reshape(P, M, B)):
+        fail(f"masked_histogram: gathered entry not exact at the main shape, max err "
+             f"{(h_g - h_r.reshape(P, M, B)).abs().max().item()}")
+    hist_err = (h_g - h_r.reshape(P, M, B)).abs().max().item()
+    print(f"masked_histogram gathered   D1 (P={P}, n={n}, M={M}, B={B}): exact")
     edge_shapes = [(5, 3, 8, None), (300, 13, 16, None), (200, 4, 64, 11), (7, 9, 32, 5),
                    (n, P * M, B, None)]
     for Ne, Me, Be, code_max in edge_shapes:
@@ -584,20 +630,51 @@ def main() -> None:
                 fail(f"masked_histogram: padding bins not zero at {(Ne, Me, Be)}")
             print(f"masked_histogram {kind:10s} N={Ne} M={Me} B={Be}: "
                   f"max_abs_err {(hk - hr).abs().max().item():.3e}")
+    # the gathered entry at edge shapes: ragged P, M and B no multiple of 4, a
+    # tile across candidates, padding bins, B large enough to shrink the tile
+    # and, at 20000, to take the shared-memory opt-in with one column per block
+    gathered_edges = [(37, n, N, M, B, None), (7, 9, 50, 3, 8, None), (13, 20, 100, 5, 30, 11),
+                      (3, 40, 64, 33, 7, None), (1, 1, 1, 1, 1, None),
+                      (5, 50, 400, 6, 5000, None), (2, 10, 20, 4, 20000, 300)]
+    for Pe, ne, Ne, Me, Be, code_max in gathered_edges:
+        rng = np.random.default_rng(Pe * 31 + Me)
+        if Ne == N:
+            codes_e = coded.codes
+        else:
+            codes_e = torch.as_tensor(rng.integers(0, code_max or Be, (Ne, Me)),
+                                      dtype=torch.int32, device=dev)
+        rows_e = torch.as_tensor(rng.integers(0, Ne, (Pe, ne)), dtype=torch.int32, device=dev)
+        hk, hr = population_histogram_rows_cuda(codes_e, rows_e, Be), gathered_plain(
+            codes_e, rows_e, Be)
+        torch.cuda.synchronize()
+        if not torch.equal(hk, hr):
+            fail(f"masked_histogram: gathered entry not exact at (P, n, N, M, B) = "
+                 f"{(Pe, ne, Ne, Me, Be)}")
+        if code_max is not None and hk[..., code_max:].any():
+            fail(f"masked_histogram: gathered padding bins not zero at {(Pe, ne, Ne, Me, Be)}")
+        print(f"masked_histogram gathered   P={Pe} n={ne} N={Ne} M={Me} B={Be}: exact")
     col_off = (torch.arange(P * M, device=dev) * B)[None, :]
     flat_idx = (flat.long() + col_off).reshape(-1)
     w_rep = ones[:, None].expand(n, P * M).reshape(-1).contiguous()
-    ms_k = time_ms(torch, lambda: masked_histogram_cuda(flat, ones, B), "kernel")
-    ms_p = time_ms(torch, lambda: masked_histogram_ref(flat, ones, B), "plain")
+    run_g = lambda: population_histogram_rows_cuda(coded.codes, rows32, B)  # noqa: E731
+    run_u = lambda: masked_histogram_cuda(flat, ones, B)                    # noqa: E731
+    ms_k = time_ms(torch, run_g, "kernel, gathered entry")
+    ms_u = time_ms(torch, run_u, "kernel, unindexed entry on the fold")
+    ms_p = time_ms(torch, lambda: gathered_plain(coded.codes, rows, B),
+                   "plain (gather, fold, scatter)")
     ms_l = time_ms(torch, lambda: torch.bincount(flat_idx, weights=w_rep, minlength=P * M * B),
-                   "bincount")
-    # codes and weights read once, counts written once; one float32 add per cell
-    b_ms, b_by = bound_ms(n * P * M * 4 + n * 4 + P * M * B * 4, n * P * M, FP32_OPS_PER_S)
-    print(f"masked_histogram (n={n}, P*M={P * M}, B={B}): kernel {ms_k:.4f} ms, plain "
-          f"{ms_p:.4f} ms, bincount {ms_l:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
-    dev_ms = kernel_device_ms(torch, lambda: masked_histogram_cuda(flat, ones, B),
-                              "masked_histogram_kernel")
-    print(f"  masked_histogram_kernel device time per launch (profiler): {dev_ms} ms")
+                   "bincount (of the fold's flat index)")
+    host_g, host_u = host_us(torch, run_g), host_us(torch, run_u)
+    # gathered codes and the row index read once, counts written once; one
+    # float32 add per cell
+    b_ms, b_by = bound_ms(n * P * M * 4 + P * n * 4 + P * M * B * 4, n * P * M, FP32_OPS_PER_S)
+    dev_g = kernel_device_ms(torch, run_g, "masked_histogram_kernel")
+    dev_u = kernel_device_ms(torch, run_u, "masked_histogram_kernel")
+    print(f"masked_histogram (P={P}, n={n}, M={M}, B={B}), gathered entry: kernel {ms_k:.5f} ms, "
+          f"device {dev_g} ms, host {host_g:.2f} us per call; plain {ms_p:.5f} ms, bincount "
+          f"{ms_l:.5f} ms, bound {b_ms:.5f} ms ({b_by})")
+    print(f"  unindexed entry on the fold (n={n}, P*M={P * M}): kernel {ms_u:.5f} ms, device "
+          f"{dev_u} ms, host {host_u:.2f} us per call")
     kernels.append({"name": "masked_histogram", "route": "cuda",
                     "source": "src/repro_torch/csrc/masked_histogram.cu",
                     "replaces": "src/repro/kernels/entropy/kernel.py:45",
@@ -608,6 +685,28 @@ def main() -> None:
     counts_main = h_r.reshape(P, M, B)
     f_ref = full_column_entropy(coded.codes, B).mean().reshape(1)
     fit_err = 0.0
+
+    def copy_at(t):
+        """A copy of ``t`` at the same address modulo 16 bytes."""
+        off = (t.data_ptr() % 16) // t.element_size()
+        out = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)[off:].view(t.shape)
+        return out.copy_(t)
+
+    def check_fused(label, counts, old, new, applied, cm):
+        """The kernel against the plain version on copies of ``counts`` (the
+        kernel's at the same address modulo 16 bytes): counts bit-equal,
+        fitness within FIT_TOL; returns the fitness error."""
+        cr, fr = fused_delta_fitness_ref(counts.clone(), old, new, applied, cm, f_ref)
+        ck, fk = fused_delta_fitness_cuda(copy_at(counts), old, new, applied, cm, f_ref)
+        torch.cuda.synchronize()
+        if not torch.equal(ck, cr):
+            fail(f"fused_delta_fitness: counts not bit-equal at {label}")
+        err = (fk - fr).abs().max().item()
+        if not err <= FIT_TOL:
+            fail(f"fused_delta_fitness: fitness off by {err} at {label}")
+        print(f"fused_delta_fitness {label}: counts bit-equal, fitness max_abs_err {err:.3e}")
+        return err
+
     for Pe in (P, 37, 1):
         rng = np.random.default_rng(Pe)
         counts = counts_main[:Pe].contiguous()
@@ -616,30 +715,56 @@ def main() -> None:
         cm = torch.as_tensor(rng.random((Pe, M)) < m / M, device=dev)
         cm[:, coded.target_col] = True
         for applied_kind in ("mutation", "zero"):
-            applied = (torch.as_tensor(rng.random(Pe) < 0.5, device=dev)
+            applied = (torch.as_tensor(rng.random(Pe) < 0.5, device=dev).float()
                        if applied_kind == "mutation" else torch.zeros(Pe, device=dev))
-            ck, fk = fused_delta_fitness_cuda(counts.clone(), old, new, applied, cm, f_ref)
-            cr, fr = fused_delta_fitness_ref(counts.clone(), old, new, applied, cm, f_ref)
-            torch.cuda.synchronize()
-            if not torch.equal(ck, cr):
-                fail(f"fused_delta_fitness: counts not bit-equal at P={Pe} ({applied_kind})")
-            err = (fk - fr).abs().max().item()
-            if not err <= FIT_TOL:
-                fail(f"fused_delta_fitness: fitness off by {err} at P={Pe} ({applied_kind})")
+            err = check_fused(f"P={Pe} M={M} B={B} {applied_kind}", counts, old, new, applied, cm)
             if Pe == P:
                 fit_err = max(fit_err, err)
-            print(f"fused_delta_fitness P={Pe} {applied_kind}: counts bit-equal, "
-                  f"fitness max_abs_err {err:.3e}")
+    # edge shapes: fractional counts and delta; a slab over 48 KB (the opt-in);
+    # over 227 KB, and slabs of a size, or at an address, no multiple of 16
+    # bytes (the device-memory route); one column; B no multiple of 4
+    for label, Pe, Me, Be, frac, view in (
+            ("fractional counts and delta", 50, M, B, True, None),
+            ("slab over 48 KB", 6, 100, 256, False, None),
+            ("slab over 227 KB", 3, 600, 256, False, None),
+            ("slabs of a size no multiple of 16 bytes, a counts[1:] view", 9, 5, 13, True,
+             "slab"),
+            ("slabs one float off 16-byte alignment", 8, M, B, False, "float"),
+            ("one column", 5, 1, 8, False, None),
+            ("B no multiple of 4", 7, 9, 30, False, None)):
+        rng = np.random.default_rng(Pe * 13 + Me)
+        shape = (Pe + (view == "slab"), Me, Be)
+        if frac:
+            base = rng.random(shape) * 4 * (rng.random(shape) < 0.6)
+        else:
+            base = rng.integers(0, 40, shape) * (rng.random(shape) < 0.3)
+        base = torch.as_tensor(base, dtype=torch.float32, device=dev)
+        if view == "slab":
+            counts = base[1:]
+        elif view == "float":
+            buf = torch.empty(base.numel() + 1, device=dev)
+            counts = buf[1:].view(shape)
+            counts.copy_(base)
+        else:
+            counts = base
+        old = torch.as_tensor(rng.integers(0, Be, (Pe, Me)), dtype=torch.int32, device=dev)
+        new = torch.as_tensor(rng.integers(0, Be, (Pe, Me)), dtype=torch.int32, device=dev)
+        cm = torch.as_tensor(rng.random((Pe, Me)) < 0.5, device=dev)
+        cm[:, 0] = True
+        applied = torch.as_tensor(rng.random(Pe) if frac else (rng.random(Pe) < 0.6),
+                                  dtype=torch.float32, device=dev)
+        check_fused(f"{label} (P={Pe} M={Me} B={Be})", counts, old, new, applied, cm)
     # the main path passes a zero delta on every generation (cross_every = 1)
     counts_t = counts_main.contiguous().clone()
     old, new = sub[:, 0, :].contiguous(), sub[:, 1, :].contiguous()
     cm = torch.zeros((P, M), dtype=torch.bool, device=dev)
     cm[:, :m] = True
     zero = torch.zeros(P, device=dev)
-    ms_k = time_ms(torch, lambda: fused_delta_fitness_cuda(counts_t, old, new, zero, cm, f_ref),
-                   "kernel")
+    run_f = lambda: fused_delta_fitness_cuda(counts_t, old, new, zero, cm, f_ref)  # noqa: E731
+    ms_k = time_ms(torch, run_f, "kernel")
     ms_p = time_ms(torch, lambda: fused_delta_fitness_ref(counts_t, old, new, zero, cm, f_ref),
                    "plain")
+    host_f = host_us(torch, run_f)
     # the counts read once; the codes, delta, mask and f_ref read once; the
     # fitness written once; two bins stored per column of each candidate whose
     # delta is applied (none here).  Per bin a float64 add to the column total,
@@ -649,12 +774,10 @@ def main() -> None:
     b_ms, b_by = bound_ms(P * M * B * 4 + 2 * P * M * 4 + P * 4 + P * M + 4 + P * 4
                           + 2 * n_applied * M * 4,
                           P * M * B + 4 * nonzero_bins, FP64_OPS_PER_S)
-    print(f"fused_delta_fitness (P={P}, M={M}, B={B}): kernel {ms_k:.4f} ms, plain "
-          f"{ms_p:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
-    dev_ms = kernel_device_ms(
-        torch, lambda: fused_delta_fitness_cuda(counts_t, old, new, zero, cm, f_ref),
-        "fused_delta_fitness_kernel")
-    print(f"  fused_delta_fitness_kernel device time per launch (profiler): {dev_ms} ms")
+    dev_ms = kernel_device_ms(torch, run_f, "fused_delta_fitness_kernel")
+    print(f"fused_delta_fitness (P={P}, M={M}, B={B}): kernel {ms_k:.5f} ms, "
+          f"device {dev_ms} ms, host {host_f:.2f} us per call; plain {ms_p:.5f} ms, bound "
+          f"{b_ms:.5f} ms ({b_by})")
     kernels.append({"name": "fused_delta_fitness", "route": "cuda",
                     "source": "src/repro_torch/csrc/fused_delta_fitness.cu",
                     "replaces": "src/repro/kernels/gen_dst/kernel.py:77",
@@ -730,7 +853,17 @@ def main() -> None:
 
     # --- 6. where the main path's time goes (a second run, profiled) ---------
     print("profiled main path (Gen-DST phase alone, then the whole execute):")
-    profile_share(torch, lambda: gen_dst(make_generator(0, dev), coded, device=dev))
+    events = profile_share(torch, lambda: gen_dst(make_generator(0, dev), coded, device=dev))
+    # device operations (kernels and copies) per generation, the initial
+    # population counted as one; B1's and B2's share of the device time
+    ops = sum(e.count for e in events)
+    total_us = sum(dev_us(e) for e in events)
+    ours_us = sum(dev_us(e) for e in events
+                  if "masked_histogram_kernel" in e.key or "fused_delta_fitness_kernel" in e.key)
+    print(f"  Gen-DST: {ops} device operations in {cfg.psi} generations and the initial "
+          f"population, {ops / (cfg.psi + 1):.1f} per generation; B1 + B2 {ours_us / 1e3:.4f} "
+          f"ms of {total_us / 1e3:.4f} ms device time "
+          f"({ours_us / total_us if total_us else float('nan'):.4f})")
     profile_share(torch, lambda: execute(plan("gen_dst"), X_tr, y_tr, seed=0, device="cuda"))
 
     # --- 7-9. the LM serving slice: B3, B4 and zamba2-2.7b at full width -----

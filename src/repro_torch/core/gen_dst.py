@@ -16,10 +16,10 @@ operations.  What differs here:
   and whole runs, comparable bit for bit.
 * **One fitness path.**  The generation loop has the structure of the
   reference's fused path (``gen_dst.py:458-488``): on recompute generations
-  the population's histograms are rebuilt by ``population_histogram``
-  (the masked-histogram kernel), and on every generation
-  ``fused_delta_fitness`` (the fused kernel) applies the row delta and
-  reduces to fitness, with ``applied = 0`` after a recompute.  The initial
+  the population's histograms are rebuilt by ``population_histogram_rows``
+  (the masked-histogram kernel, which gathers the rows itself), and on
+  every generation ``fused_delta_fitness`` (the fused kernel) applies the
+  row delta and reduces to fitness, with ``applied = 0`` after a recompute.  The initial
   fitness goes through it too, with a zero delta.  On a CUDA device both
   kernels run; on the CPU their plain versions do.  The device chooses, so
   the reference's ``backend`` field is gone.
@@ -35,7 +35,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..device import DeviceLike, make_generator, resolve_device
-from ..kernels.entropy.ops import population_histogram
+from ..kernels.entropy.ops import population_histogram_rows
 from ..kernels.gen_dst.ops import fused_delta_fitness
 from .measures import MEASURES, CodedDataset, full_column_entropy
 
@@ -340,8 +340,8 @@ def _gen_dst_run(codes, values, n: int, m: int, cfg: GenDSTConfig, B: int, targe
         f_ref = measure_fn(values)
 
     def pop_counts(rows):
-        sub = codes[rows.reshape(-1, n).long()]                 # (I*phi, n, M)
-        return population_histogram(sub, B).reshape(I, phi, M, B)
+        # one launch gathers the candidates' rows and counts them
+        return population_histogram_rows(codes, rows.reshape(-1, n), B).reshape(I, phi, M, B)
 
     no_delta = torch.zeros((I, phi), dtype=torch.float32, device=dev)
 

@@ -7,34 +7,132 @@
 //   fit[p]   = -|f_d[p] - f_ref|
 //
 // Replaces the Pallas TPU kernel `fused_delta_fitness_pallas`
-// (src/repro/kernels/gen_dst/kernel.py:77, body `fused_delta_fitness_kernel` :39).
-// The TPU kernel held a slab of candidates in VMEM and applied the delta as a
-// one-hot compare against a bin iota. Here:
-//
-//   * one block per candidate; each warp takes whole columns, its lanes stride
-//     over the B bins of the column;
-//   * the delta is two conditional adds per column, done in place on the counts
-//     tensor (the TPU kernel aliased its output onto its input for the same
-//     effect); the adds are the plain version's `-w` then `+w`, so the counts
-//     come out bit-equal to it; only the (at most two) bins that change are
-//     stored, and none when `applied[p]` is 0;
-//   * the column total and the sum of q log2 q are warp-shuffle reductions, the
-//     per-column entropies go to shared memory, and thread 0 takes the
-//     column-masked mean and writes the fitness;
-//   * the entropy and the mean accumulate in float64 and round to float32 once,
-//     as the plain version does: float32 sums of ~256 terms near 8 bits carry
-//     errors of ~1e-6 that depend on the summation order, which would leave the
-//     kernel and the plain version that far apart.
-//
-// `f_ref` is read from device memory so the caller needs no host sync.
+// (src/repro/kernels/gen_dst/kernel.py:77, body `fused_delta_fitness_kernel` :39),
+// which held a slab of candidates in VMEM and applied the delta as a one-hot
+// compare against a bin iota.
 //
 // Bound on an H100 at the main-path shape (P = 100, M = 23, B = 256): the counts
-// are read once, ~2.4 MB, plus two stored bins per column where the delta is
-// applied, ~0.7 us at 3.35 TB/s; the arithmetic (one float64 log2 per nonzero
-// bin, at most ~0.6 M of them) is far below the float64 rate, so at that size
-// it is bound by launch latency.
+// are read once, 2.36 MB, ~0.7 us at 3.35 TB/s; the float64 arithmetic is a few
+// operations per nonzero bin (~0.6 M bins at most), far below the float64 rate.
+// So the work is bound by bytes, and at this size in practice by latency: the
+// launch, one round trip to device memory, and the reductions.  The design
+// spends its effort there:
+//
+//   * Hopper's bulk asynchronous copy (TMA, `cp.async.bulk` completing on an
+//     `mbarrier`).  A candidate's counts are one contiguous slab of M*B*4 bytes
+//     (23,552 B at D1); one thread stages it into shared memory with one copy,
+//     1-D, so no tensor map is encoded on the host.  While it flies the warps
+//     load their columns' codes, mask bits and the delta.
+//   * The delta is applied in shared memory by one lane per column, as the
+//     plain version's `-w` then `+w`, and only the (at most two) bins that
+//     change are stored back to device memory; none when `applied[p]` is 0.
+//   * One warp per column: each lane reads 16-byte vectors of its bins and
+//     keeps three independent float64 sums (total, positive mass, c log2 c), so
+//     a lane's loads and logs overlap; three shuffle reductions per column.
+//   * The entropy uses h = (C+ log2 T - sum_{c>0} c log2 c) / T with T the
+//     column total and C+ its positive mass, the plain version's
+//     -sum q log2 q with q = c / T rewritten; log2 of an integer count below
+//     1024 comes from a float64 table that the same bulk copy stages per block,
+//     any other value is computed.  Sums stay float64 and the fitness rounds
+//     to float32 once, as in the plain version: float32 sums of ~256 terms near
+//     8 bits carry order-dependent errors of ~1e-6.
+//   * The column-masked mean is a shuffle reduction over the warps' partial
+//     sums, then one thread writes the fitness.
+//   * Filling the card at P = 100 on 132 SMs: one CTA per candidate, one warp
+//     per column (23 warps at D1).  Splitting a candidate over a thread-block
+//     cluster of 2 or 4 CTAs, whose partial sums meet in the first CTA's
+//     shared memory through distributed shared memory (`mapa` +
+//     `st.shared::cluster`), fills more SMs but measured slower at 23 and at
+//     100 columns (chip_ablation.py); it stays as the GD_CLUSTER switch.
+//   * A slab that does not fit shared memory (over ~218 KB per CTA) or whose
+//     address or size is no multiple of 16 bytes is read by the same warps
+//     straight from device memory, with the delta applied there; the rest of
+//     the kernel is the same.
+//
+// Tensor cores have no role: the work is ~0.6 M independent bin reductions
+// with a data-dependent log, no matrix product.
+//
+// Ablation switches (chip_ablation.py builds the kernel with each): GD_NO_BULK
+// reads every slab straight from device memory; GD_LOG2_DIRECT takes a float64
+// log2 of every nonzero bin instead of the table; GD_CLUSTER=2 or 4 shares each
+// candidate among that many CTAs of a cluster.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <cmath>
+
+namespace {
+
+constexpr int MAX_WARPS = 32;
+constexpr int LOG2_N = 1024;                            // table of log2(k), k < LOG2_N
+constexpr int LOG2_BYTES = LOG2_N * 8;
+constexpr int HEADER = 1024;                            // mbarrier and partial sums
+constexpr int SMEM_LIMIT = 232448;                      // a block's shared memory on Hopper
+constexpr int SLAB_LIMIT = SMEM_LIMIT - HEADER - LOG2_BYTES;
+constexpr int MAX_DEVICES = 64;
+#ifndef GD_CLUSTER
+#define GD_CLUSTER 1
+#endif
+static_assert(GD_CLUSTER == 1 || GD_CLUSTER == 2 || GD_CLUSTER == 4, "GD_CLUSTER: 1, 2 or 4");
+
+__device__ __align__(16) double g_log2_table[LOG2_N];
+bool g_table_ready[MAX_DEVICES];
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// returns once phase `parity` of `bar` has completed; a wait that never ends
+// traps after ~2^26 polls, an error at the next synchronise, instead of
+// holding the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+    const uint32_t addr = smem_u32(bar);
+    uint32_t done = 0;
+    for (uint32_t polls = 0; !done; ++polls) {
+        asm volatile("{\n.reg .pred p;\n"
+                     "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                     "selp.u32 %0, 1, 0, p;\n}\n"
+                     : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+        if (polls == (1u << 26)) __trap();
+    }
+}
+
+// `bytes` (a multiple of 16) from 16-byte aligned device memory into shared
+// memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+                 " [%0], [%1], %2, [%3];\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// store `v` at the address of `local` in the shared memory of cluster CTA `rank`
+__device__ __forceinline__ void st_cluster(const double* local, uint32_t rank, double v) {
+    uint32_t remote;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+                 : "=r"(remote) : "r"(smem_u32(local)), "r"(rank));
+    asm volatile("st.shared::cluster.f64 [%0], %1;\n" :: "r"(remote), "d"(v) : "memory");
+}
 
 __device__ __forceinline__ double warp_sum(double v) {
 #pragma unroll
@@ -42,71 +140,221 @@ __device__ __forceinline__ double warp_sum(double v) {
     return v;
 }
 
-__global__ void fused_delta_fitness_kernel(float* __restrict__ counts,
-                                           const int32_t* __restrict__ old_codes,
-                                           const int32_t* __restrict__ new_codes,
-                                           const float* __restrict__ applied,
-                                           const bool* __restrict__ col_mask,
-                                           const float* __restrict__ f_ref,
-                                           float* __restrict__ fit,
-                                           int M, int B) {
-    extern __shared__ double h[];  // (M,) per-column entropy
-    const int p = blockIdx.x;
-    const int warp = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-    const int nwarps = blockDim.x >> 5;
-    const float w = applied[p];
+__device__ __forceinline__ double log2_of(double c, const double* lg) {
+#ifndef GD_LOG2_DIRECT
+    const int k = (int)c;
+    if (k < LOG2_N && (double)k == c) return lg[k];
+#endif
+    return log2(c);
+}
 
-    for (int m = warp; m < M; m += nwarps) {
-        float* row = counts + ((long long)p * M + m) * B;
-        const int oc = old_codes[(long long)p * M + m];
-        const int nc = new_codes[(long long)p * M + m];
-        double total = 0.0;
-        for (int b = lane; b < B; b += 32) {
-            float c = row[b];
-            if (w != 0.0f && (b == oc || b == nc)) {   // at most two bins change
-                if (b == oc) c = c + (-w);
-                if (b == nc) c = c + w;
-                row[b] = c;
-            }
-            total += (double)c;
-        }
-        total = fmax(warp_sum(total), 1e-12);
-        double acc = 0.0;
-        for (int b = lane; b < B; b += 32) {
-            const double q = (double)row[b] / total;
-            if (q > 0.0) acc += q * log2(fmax(q, 1e-30));
-        }
-        acc = warp_sum(acc);
-        if (lane == 0) h[m] = -acc;
-    }
-    __syncthreads();
+struct Sums { double total = 0.0, pos = 0.0, clogc = 0.0; };
 
-    if (threadIdx.x == 0) {
-        double num = 0.0, den = 0.0;
-        for (int m = 0; m < M; ++m) {
-            if (col_mask[(long long)p * M + m]) {
-                num += h[m];
-                den += 1.0;
-            }
-        }
-        fit[p] = (float)(-fabs(num / fmax(den, 1.0) - (double)f_ref[0]));
+__device__ __forceinline__ void add_bin(Sums& s, float c, const double* lg) {
+    const double d = (double)c;
+    s.total += d;
+    if (c > 0.0f) {
+        s.pos += d;
+        s.clogc += d * log2_of(d, lg);
     }
 }
 
+// entropy of one column of B bins at `row` (shared or device memory), by one warp
+__device__ __forceinline__ double column_entropy(const float* row, int B, const double* lg,
+                                                 int lane) {
+    Sums s;
+    if ((B & 3) == 0 && (reinterpret_cast<uintptr_t>(row) & 15) == 0) {
+        const float4* r4 = reinterpret_cast<const float4*>(row);
+#pragma unroll 2
+        for (int i = lane; i < (B >> 2); i += 32) {
+            const float4 v = r4[i];
+            add_bin(s, v.x, lg);
+            add_bin(s, v.y, lg);
+            add_bin(s, v.z, lg);
+            add_bin(s, v.w, lg);
+        }
+    } else {
+        for (int b = lane; b < B; b += 32) add_bin(s, row[b], lg);
+    }
+    const double total = fmax(warp_sum(s.total), 1e-12);
+    const double pos = warp_sum(s.pos);
+    const double clogc = warp_sum(s.clogc);
+    return (pos * log2_of(total, lg) - clogc) / total;
+}
+
+// one CTA per (candidate, cluster rank); a cluster of SPLIT CTAs per candidate
+// (GD_CLUSTER; 1 in the build)
+template <int SPLIT>
+__global__ void __launch_bounds__(MAX_WARPS * 32)
+fused_delta_fitness_kernel(float* __restrict__ counts, const int32_t* __restrict__ old_codes,
+                           const int32_t* __restrict__ new_codes,
+                           const float* __restrict__ applied, const bool* __restrict__ col_mask,
+                           const float* __restrict__ f_ref, float* __restrict__ fit,
+                           int M, int B, int stage_slab) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+    double* warp_num = reinterpret_cast<double*>(smem + 64);           // [MAX_WARPS]
+    double* warp_den = warp_num + MAX_WARPS;                           // [MAX_WARPS]
+    double* rank_num = warp_den + MAX_WARPS;                           // [SPLIT]
+    double* rank_den = rank_num + 4;                                   // [SPLIT]
+    double* lg = reinterpret_cast<double*>(smem + HEADER);             // [LOG2_N]
+    float* slab = reinterpret_cast<float*>(smem + HEADER + LOG2_BYTES);
+
+    if (SPLIT > 1) cluster_arrive_relaxed();   // waited on before the partial sums meet
+    const int p = blockIdx.x / SPLIT;
+    const int rank = blockIdx.x % SPLIT;       // the CTA's rank in its cluster
+    const int per = (M + SPLIT - 1) / SPLIT;
+    const int m0 = min(M, rank * per);
+    const int m1 = min(M, m0 + per);
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int nwarps = blockDim.x >> 5;
+
+    float* gslab = counts + ((size_t)p * M + m0) * B;
+    const size_t slab_bytes = (size_t)(m1 - m0) * B * sizeof(float);
+    const bool staged = stage_slab && m1 > m0 &&
+                        ((reinterpret_cast<uintptr_t>(gslab) | slab_bytes) & 15) == 0;
+    if (threadIdx.x == 0) mbar_init(bar, 1);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        mbar_expect_tx(bar, LOG2_BYTES + (staged ? (uint32_t)slab_bytes : 0u));
+        bulk_load(lg, g_log2_table, LOG2_BYTES, bar);
+        if (staged) bulk_load(slab, gslab, (uint32_t)slab_bytes, bar);
+    }
+
+    // while the copies fly: the delta and this warp's first column's operands
+    const float w = applied[p];
+    int m = m0 + warp;
+    int oc = 0, nc = 0;
+    bool keep = false;
+    if (m < m1) {
+        oc = old_codes[(size_t)p * M + m];
+        nc = new_codes[(size_t)p * M + m];
+        keep = col_mask[(size_t)p * M + m];
+    }
+    mbar_wait(bar, 0);
+
+    double num = 0.0, den = 0.0;
+    for (; m < m1; m += nwarps) {
+        float* grow = counts + ((size_t)p * M + m) * B;
+        float* row = staged ? slab + (size_t)(m - m0) * B : grow;
+        if (lane == 0 && w != 0.0f) {          // at most two bins change
+            if ((unsigned)oc < (unsigned)B) {
+                const float v = row[oc] + (-w);
+                row[oc] = v;
+                if (staged) grow[oc] = v;
+            }
+            if ((unsigned)nc < (unsigned)B) {
+                const float v = row[nc] + w;
+                row[nc] = v;
+                if (staged) grow[nc] = v;
+            }
+        }
+        __syncwarp();
+        const double h = column_entropy(row, B, lg, lane);
+        if (keep) {
+            num += h;
+            den += 1.0;
+        }
+        const int next = m + nwarps;
+        if (next < m1) {
+            oc = old_codes[(size_t)p * M + next];
+            nc = new_codes[(size_t)p * M + next];
+            keep = col_mask[(size_t)p * M + next];
+        }
+    }
+
+    // the masked mean: warps' partial sums by shuffles, then across the cluster
+    if (lane == 0) {
+        warp_num[warp] = num;
+        warp_den[warp] = den;
+    }
+    __syncthreads();
+    if (warp == 0) {
+        num = warp_sum(lane < nwarps ? warp_num[lane] : 0.0);
+        den = warp_sum(lane < nwarps ? warp_den[lane] : 0.0);
+    }
+    if (SPLIT > 1) {
+        cluster_wait();                        // every CTA of the cluster has started
+        if (threadIdx.x == 0) {
+            st_cluster(&rank_num[rank], 0, num);
+            st_cluster(&rank_den[rank], 0, den);
+        }
+        cluster_arrive();
+        cluster_wait();
+        if (rank != 0) return;
+        if (threadIdx.x == 0) {
+            num = den = 0.0;
+            for (int r = 0; r < SPLIT; ++r) {
+                num += rank_num[r];
+                den += rank_den[r];
+            }
+        }
+    }
+    if (threadIdx.x == 0) fit[p] = (float)(-fabs(num / fmax(den, 1.0) - (double)f_ref[0]));
+}
+
+template <int SPLIT>
+cudaError_t launch(float* counts, const int32_t* old_codes, const int32_t* new_codes,
+                   const float* applied, const bool* col_mask, const float* f_ref, float* fit,
+                   int P, int M, int B, cudaStream_t stream) {
+    const int per = (M + SPLIT - 1) / SPLIT;
+    const size_t slab = (size_t)per * B * sizeof(float);
+#ifdef GD_NO_BULK
+    const int stage = 0;
+#else
+    const int stage = slab <= (size_t)SLAB_LIMIT;
+#endif
+    const size_t smem = HEADER + LOG2_BYTES + (stage ? slab : 0);
+    if (smem > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            fused_delta_fitness_kernel<SPLIT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)smem);
+        if (err != cudaSuccess) return err;
+    }
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)P * SPLIT);
+    cfg.blockDim = dim3(32 * (per < MAX_WARPS ? per : MAX_WARPS));
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = SPLIT;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = SPLIT > 1 ? 1 : 0;
+    return cudaLaunchKernelEx(&cfg, fused_delta_fitness_kernel<SPLIT>, counts, old_codes,
+                              new_codes, applied, col_mask, f_ref, fit, M, B, stage);
+}
+
+}  // namespace
+
 // Returns a cudaError_t as int: 0 on success. Launches on `stream`, does not
-// synchronise and allocates nothing; `counts` is updated in place.
+// synchronise and allocates nothing; `counts` is updated in place.  The first
+// call on a device also fills the device's log2 table, a synchronous 8 KB copy
+// from the host (so not inside a CUDA graph capture).
 extern "C" int launch_fused_delta_fitness(void* counts, const void* old_codes,
                                           const void* new_codes, const void* applied,
                                           const void* col_mask, const void* f_ref,
-                                          void* fit, int P, int M, int B,
-                                          void* stream) {
+                                          void* fit, int P, int M, int B, void* stream) {
     if (P < 0 || M <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
     if (P == 0) return (int)cudaSuccess;
-    const size_t smem = (size_t)M * sizeof(double);   // the wrapper keeps it <= 48 KB
-    fused_delta_fitness_kernel<<<P, 256, smem, (cudaStream_t)stream>>>(
-        (float*)counts, (const int32_t*)old_codes, (const int32_t*)new_codes,
-        (const float*)applied, (const bool*)col_mask, (const float*)f_ref,
-        (float*)fit, M, B);
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+    if (!g_table_ready[dev]) {
+        static double table[LOG2_N];
+        for (int k = 1; k < LOG2_N; ++k) table[k] = std::log2((double)k);
+        err = cudaMemcpyToSymbol(g_log2_table, table, sizeof(table));
+        if (err != cudaSuccess) return (int)err;
+        g_table_ready[dev] = true;
+    }
+    err = launch<GD_CLUSTER>((float*)counts, (const int32_t*)old_codes,
+                             (const int32_t*)new_codes, (const float*)applied,
+                             (const bool*)col_mask, (const float*)f_ref, (float*)fit, P, M, B,
+                             (cudaStream_t)stream);
+    if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }

@@ -26,7 +26,9 @@ import types
 from pathlib import Path
 from typing import Optional
 
-__all__ = ["BUILD_DIR", "CSRC", "build", "check", "library"]
+import torch
+
+__all__ = ["BUILD_DIR", "CSRC", "build", "check", "library", "stream"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -41,7 +43,8 @@ _C_FLOAT = ctypes.c_float
 # int and float arguments, then the stream
 _SIGNATURES = {
     "masked_histogram":
-        [_C_PTR, _C_PTR, _C_PTR, _C_INT, _C_INT, _C_INT, _C_INT, _C_PTR],
+        [_C_PTR, _C_PTR, _C_PTR, _C_PTR, _C_INT, _C_INT, _C_INT, _C_INT, _C_INT, _C_INT,
+         _C_PTR],
     "fused_delta_fitness":
         [_C_PTR, _C_PTR, _C_PTR, _C_PTR, _C_PTR, _C_PTR, _C_PTR,
          _C_INT, _C_INT, _C_INT, _C_PTR],
@@ -117,6 +120,18 @@ def library() -> types.SimpleNamespace:
             launchers[f"launch_{stem}"] = fn
         _lib = types.SimpleNamespace(**launchers)
     return _lib
+
+
+# the current stream's raw handle without building a ``torch.cuda.Stream``
+# (the private call inductor's generated code uses), else the public one
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def stream(device_index: int) -> int:
+    """The current CUDA stream of device ``device_index``, as an int handle."""
+    if _raw_stream is not None:
+        return _raw_stream(device_index)
+    return torch.cuda.current_stream(device_index).cuda_stream
 
 
 def check(err: int, name: str) -> None:

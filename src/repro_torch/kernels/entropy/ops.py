@@ -8,10 +8,11 @@ from __future__ import annotations
 
 import torch
 
-from .kernel import masked_histogram_cuda
+from .kernel import masked_histogram_cuda, population_histogram_rows_cuda
 from .ref import entropy_from_hist, masked_histogram_ref
 
-__all__ = ["masked_histogram", "column_entropy_masked", "population_histogram"]
+__all__ = ["masked_histogram", "column_entropy_masked", "population_histogram",
+           "population_histogram_rows"]
 
 
 def masked_histogram(codes: torch.Tensor, weights: torch.Tensor, bins: int) -> torch.Tensor:
@@ -36,3 +37,15 @@ def population_histogram(sub_codes: torch.Tensor, bins: int) -> torch.Tensor:
     flat = sub_codes.permute(1, 0, 2).reshape(n, P * M).contiguous()
     ones = torch.ones(n, dtype=torch.float32, device=sub_codes.device)
     return masked_histogram(flat, ones, bins).reshape(P, M, bins)
+
+
+def population_histogram_rows(codes: torch.Tensor, rows: torch.Tensor, bins: int) -> torch.Tensor:
+    """``population_histogram(codes[rows], bins)``: out[p, m, b] =
+    |{i : codes[rows[p, i], m] == b}| for (N, M) codes and (P, n) row indices.
+
+    On a card one kernel launch gathers the rows as it counts them (codes and
+    rows int32, contiguous, indices in [0, N)); on the CPU it is exactly that
+    composition, the plain version."""
+    if codes.is_cuda:
+        return population_histogram_rows_cuda(codes, rows, bins)
+    return population_histogram(codes[rows.long()], bins)

@@ -10,6 +10,12 @@ are bit-equal (the same two adds per bin).  Both accumulate the entropy and
 the masked mean in float64 and round the fitness to float32 once, so the
 fitness agrees to float32 rounding: within 1e-6 absolute.
 
+The wrapper takes the inputs with any leading shape (Gen-DST passes
+``(islands, phi, ...)``) and reads them as one candidate axis through their
+data pointers, so a call makes no views and no copies: at the main path's
+size the host's time per call is of the order of the kernel's.  The checks
+that raise on a wrong input stay, written to be cheap.
+
 ``launches`` counts the kernel's launches; it is incremented only where the
 kernel is launched.
 """
@@ -22,45 +28,44 @@ from .. import _build
 __all__ = ["fused_delta_fitness_cuda", "launches"]
 
 launches = 0
-_SMEM_BYTES = 48 * 1024
+_DTYPES = (torch.float32, torch.int32, torch.int32, torch.float32, torch.bool, torch.float32)
 
 
 def fused_delta_fitness_cuda(counts, old_codes, new_codes, applied, col_mask, f_ref):
-    """In-place delta + fitness over (P, M, B) f32 ``counts``.
+    """In-place delta + fitness over (..., M, B) f32 ``counts``.
 
-    ``old_codes``/``new_codes`` (P, M) int32, ``applied`` (P,) any dtype
-    (cast to f32 here), ``col_mask`` (P, M) bool, ``f_ref`` a one-element
-    f32 tensor on the device.  Returns ``(counts, fitness)``."""
+    ``old_codes``/``new_codes`` (..., M) int32, ``applied`` (...,) f32,
+    ``col_mask`` (..., M) bool, ``f_ref`` a one-element f32 tensor on the
+    device, all contiguous.  Returns ``(counts, fitness)``, fitness (...,)."""
     global launches
-    tensors = (counts, old_codes, new_codes, applied, col_mask, f_ref)
-    if not all(t.is_cuda and t.device == counts.device for t in tensors):
+    dev = counts.get_device()
+    if dev < 0 or not (old_codes.get_device() == new_codes.get_device() == applied.get_device()
+                       == col_mask.get_device() == f_ref.get_device() == dev):
         raise ValueError("fused_delta_fitness_cuda: tensors must be on one CUDA device")
-    if counts.dtype != torch.float32 or f_ref.dtype != torch.float32:
-        raise TypeError("fused_delta_fitness_cuda: counts and f_ref must be float32")
-    if old_codes.dtype != torch.int32 or new_codes.dtype != torch.int32:
-        raise TypeError("fused_delta_fitness_cuda: codes must be int32")
-    if col_mask.dtype != torch.bool:
-        raise TypeError("fused_delta_fitness_cuda: col_mask must be bool")
-    if counts.dim() != 3:
-        raise ValueError(f"fused_delta_fitness_cuda: counts must be (P, M, B), "
-                         f"got {tuple(counts.shape)}")
-    P, M, B = counts.shape
-    if (old_codes.shape != (P, M) or new_codes.shape != (P, M)
-            or col_mask.shape != (P, M) or applied.shape != (P,) or f_ref.numel() != 1):
-        raise ValueError("fused_delta_fitness_cuda: inputs do not match counts' (P, M)")
-    if M * 8 > _SMEM_BYTES:
-        raise ValueError(f"fused_delta_fitness_cuda: M={M} does not fit shared memory")
-    applied = applied.to(torch.float32).contiguous()
-    if not all(t.is_contiguous() for t in (counts, old_codes, new_codes, col_mask, f_ref)):
+    if (counts.dtype, old_codes.dtype, new_codes.dtype, applied.dtype, col_mask.dtype,
+            f_ref.dtype) != _DTYPES:
+        raise TypeError("fused_delta_fitness_cuda: counts, applied and f_ref must be float32, "
+                        "the codes int32 and col_mask bool")
+    shape = counts.shape
+    if len(shape) < 2:
+        raise ValueError(f"fused_delta_fitness_cuda: counts must be (..., M, B), got {shape}")
+    col_shape = shape[:-1]
+    if (old_codes.shape != col_shape or new_codes.shape != col_shape
+            or col_mask.shape != col_shape or applied.shape != col_shape[:-1]
+            or f_ref.numel() != 1):
+        raise ValueError("fused_delta_fitness_cuda: inputs do not match counts' (..., M)")
+    if not (counts.is_contiguous() and old_codes.is_contiguous() and new_codes.is_contiguous()
+            and applied.is_contiguous() and col_mask.is_contiguous()):
         raise ValueError("fused_delta_fitness_cuda: tensors must be contiguous")
-    fit = torch.empty(P, dtype=torch.float32, device=counts.device)
+    M, B = shape[-2], shape[-1]
+    fit = counts.new_empty(col_shape[:-1])      # new_empty: no device argument to parse
+    P = fit.numel()
     if P == 0:
         return counts, fit
-    lib = _build.library()
-    stream = torch.cuda.current_stream(counts.device).cuda_stream
-    err = lib.launch_fused_delta_fitness(
+    err = _build.library().launch_fused_delta_fitness(
         counts.data_ptr(), old_codes.data_ptr(), new_codes.data_ptr(), applied.data_ptr(),
-        col_mask.data_ptr(), f_ref.data_ptr(), fit.data_ptr(), P, M, B, stream)
+        col_mask.data_ptr(), f_ref.data_ptr(), fit.data_ptr(), P, M, B,
+        _build.stream(dev))
     _build.check(err, "fused_delta_fitness")
     launches += 1
     return counts, fit

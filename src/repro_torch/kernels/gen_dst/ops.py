@@ -10,8 +10,9 @@ fitness reduction over fresh histograms.
 A CUDA tensor goes to the hand-written kernel (``kernel.py``), which launches
 or raises; a CPU tensor goes to the plain version (``ref.py``).  Both update
 ``counts`` in place.  Inputs may carry any leading shape (Gen-DST calls with
-``(islands, phi, ...)``); they are flattened to one candidate axis for the
-call and restored on return, as in the JAX package's ``gen_dst/ops.py:60-76``.
+``(islands, phi, ...)``), as in the JAX package's ``gen_dst/ops.py:60-76``:
+the kernel reads them as one candidate axis through their data pointers, and
+the plain version gets flattened views.
 """
 from __future__ import annotations
 
@@ -29,20 +30,24 @@ def fused_delta_fitness(counts, old_codes, new_codes, applied, col_mask, f_ref):
     ``counts'[p]`` is ``counts[p]`` with row ``old -> new`` swapped where
     ``applied[p]``; ``fitness[p] = -|F(d_p) - F(D)|`` from the updated
     counts under ``col_mask[p]``.  ``counts`` must be contiguous: it is
-    updated in place through a flattened view."""
+    updated in place.  On a card every input must be contiguous (the kernel
+    raises otherwise); inputs already of the kernel's dtypes and on its
+    device, as Gen-DST passes them, go to it unconverted."""
     if not counts.is_contiguous():
         raise ValueError("fused_delta_fitness: counts must be contiguous (updated in place)")
+    if counts.is_cuda:
+        if applied.dtype != torch.float32:
+            applied = applied.to(torch.float32)
+        if col_mask.dtype != torch.bool:
+            col_mask = col_mask.to(torch.bool)
+        if not (isinstance(f_ref, torch.Tensor) and f_ref.dtype == torch.float32
+                and f_ref.get_device() == counts.get_device()):
+            f_ref = torch.as_tensor(f_ref, dtype=torch.float32, device=counts.device)
+        return fused_delta_fitness_cuda(counts, old_codes, new_codes, applied, col_mask, f_ref)
     lead = old_codes.shape[:-1]
     M, B = counts.shape[-2:]
-    cf = counts.view(-1, M, B)
-    of = old_codes.reshape(-1, M)
-    nf = new_codes.reshape(-1, M)
-    af = applied.reshape(-1)
-    mf = col_mask.reshape(-1, M)
     f_ref = torch.as_tensor(f_ref, dtype=torch.float32, device=counts.device).reshape(1)
-    if counts.is_cuda:
-        _, fit = fused_delta_fitness_cuda(cf, of.contiguous(), nf.contiguous(), af,
-                                          mf.to(torch.bool).contiguous(), f_ref)
-    else:
-        _, fit = fused_delta_fitness_ref(cf, of, nf, af, mf, f_ref)
+    _, fit = fused_delta_fitness_ref(counts.view(-1, M, B), old_codes.reshape(-1, M),
+                                     new_codes.reshape(-1, M), applied.reshape(-1),
+                                     col_mask.reshape(-1, M), f_ref)
     return counts, fit.reshape(lead)

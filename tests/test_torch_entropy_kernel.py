@@ -5,6 +5,10 @@ reference's ``masked_histogram_ref`` and to its Pallas kernel in interpret
 mode.  The CUDA leg compares the hand-written kernel with the plain version
 and skips without a card.
 
+The gathered entry (``population_histogram_rows``: the row gather done in
+the kernel) is held to the reference's ``population_histogram`` on
+``codes[rows]``; on the card, both entries to their plain versions.
+
 Tolerances: 0/1 weights bit-identical; fractional weights rtol = atol =
 1e-5 (float32 sums in another order); entropies 1e-6 absolute.
 """
@@ -17,8 +21,9 @@ from repro.kernels.entropy.kernel import masked_histogram_pallas
 from repro.kernels.entropy.ops import population_histogram as j_population_histogram
 from repro.kernels.entropy.ref import entropy_from_hist as j_entropy_from_hist
 from repro.kernels.entropy.ref import masked_histogram_ref as j_hist_ref
+from repro_torch.kernels.entropy.kernel import tile_for
 from repro_torch.kernels.entropy.ops import (
-    column_entropy_masked, masked_histogram, population_histogram,
+    column_entropy_masked, masked_histogram, population_histogram, population_histogram_rows,
 )
 from repro_torch.kernels.entropy.ref import masked_histogram_ref
 from _torch_port import np_, requires_cuda, skip_without_cuda, t
@@ -90,3 +95,80 @@ def test_cuda_histogram_matches_plain(N, M, B, code_max):
     wt = t(w_frac, device="cuda")
     torch.testing.assert_close(masked_histogram(c, wt, B), masked_histogram_ref(c, wt, B),
                                rtol=1e-5, atol=1e-5)
+
+
+# (P, n, N, M, B, code_max): ragged P, M and B no multiple of 4, padding bins,
+# one row, one column
+GATHERED_SHAPES = [
+    (4, 9, 30, 3, 8, None),
+    (7, 20, 50, 5, 30, 11),
+    (13, 6, 10, 23, 7, None),
+    (1, 1, 1, 1, 1, None),
+    (3, 40, 64, 33, 13, 5),
+]
+
+
+def _gathered_case(P, n, N, M, B, code_max, seed):
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, B if code_max is None else code_max, (N, M)).astype(np.int32)
+    return codes, rng.integers(0, N, (P, n)).astype(np.int32)
+
+
+@pytest.mark.parametrize("P,n,N,M,B,code_max", GATHERED_SHAPES)
+def test_gathered_histogram_matches_reference(P, n, N, M, B, code_max):
+    codes, rows = _gathered_case(P, n, N, M, B, code_max, seed=P * 17 + M)
+    h = np_(population_histogram_rows(t(codes), t(rows), B))
+    assert h.shape == (P, M, B)
+    ref = np.asarray(j_population_histogram(jnp.asarray(codes[rows]), B))
+    np.testing.assert_array_equal(h, ref)
+    np.testing.assert_array_equal(h, np_(population_histogram(t(codes[rows]), B)))
+    if code_max is not None:
+        assert not h[..., code_max:].any(), "bins no code reaches must stay empty"
+
+
+def test_gathered_histogram_matches_pallas_interpret():
+    codes, rows = _gathered_case(5, 12, 40, 6, 16, None, seed=5)
+    h = np_(population_histogram_rows(t(codes), t(rows), 16))
+    np.testing.assert_array_equal(
+        h, np.asarray(j_population_histogram(jnp.asarray(codes[rows]), 16, backend="pallas",
+                                             interpret=True)))
+
+
+def test_gathered_histogram_takes_int64_rows_on_the_cpu():
+    codes, rows = _gathered_case(6, 10, 25, 4, 8, None, seed=8)
+    np.testing.assert_array_equal(np_(population_histogram_rows(t(codes), t(rows), 8)),
+                                  np_(population_histogram_rows(t(codes), t(rows.astype(np.int64)),
+                                                                8)))
+
+
+@pytest.mark.parametrize("bins", [1, 8, 256, 5000, 20000])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_tile_fits_shared_memory(bins, weighted):
+    """The launch tile: a power of two up to 8 (16 with weights) whose 32-bit
+    counts, rows of bins (bins | 1 with weights), fit 48 KB, or one column
+    under the 227 KB opt-in."""
+    tile = tile_for(bins, weighted)
+    assert tile in ((1, 2, 4, 8, 16) if weighted else (1, 2, 4, 8))
+    row = 4 * ((bins | 1) if weighted else bins)
+    assert tile * row <= 48 * 1024 or (tile == 1 and row <= 232448)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_tile_refuses_bins_beyond_shared_memory(weighted):
+    with pytest.raises(ValueError, match="does not fit"):
+        tile_for(60000, weighted)
+
+
+@requires_cuda
+@pytest.mark.parametrize("P,n,N,M,B,code_max",
+                         GATHERED_SHAPES + [(100, 322, 2000, 23, 256, None),
+                                            (37, 322, 2000, 23, 256, 40),
+                                            (2, 10, 20, 4, 20000, 300)])
+def test_cuda_gathered_histogram_matches_plain(P, n, N, M, B, code_max):
+    skip_without_cuda()
+    codes, rows = _gathered_case(P, n, N, M, B, code_max, seed=P + n)
+    c, r = t(codes, device="cuda"), t(rows, device="cuda")
+    h = population_histogram_rows(c, r, B)
+    flat = c[r.long()].permute(1, 0, 2).reshape(n, P * M)
+    plain = masked_histogram_ref(flat, torch.ones(n, device="cuda"), B).reshape(P, M, B)
+    assert torch.equal(h, plain)

@@ -16,6 +16,7 @@ import torch
 from repro.kernels.gen_dst.kernel import fused_delta_fitness_pallas
 from repro.kernels.gen_dst.ops import fused_delta_fitness as j_fused
 from repro.kernels.gen_dst.ref import fused_delta_fitness_ref as j_fused_ref
+from repro_torch.kernels.gen_dst.kernel import fused_delta_fitness_cuda
 from repro_torch.kernels.gen_dst.ops import fused_delta_fitness
 from repro_torch.kernels.gen_dst.ref import fused_delta_fitness_ref
 from _torch_port import np_, requires_cuda, skip_without_cuda, t
@@ -98,5 +99,70 @@ def test_cuda_fused_matches_plain(P, M, B, code_max):
     args = _case((P,), M, B, seed=P + M, code_max=code_max)
     c_k, f_k = fused_delta_fitness(*_port(args, "cuda"))
     c_r, f_r = fused_delta_fitness_ref(*_port(args, "cuda"))
+    assert torch.equal(c_k, c_r)
+    assert (f_k - f_r).abs().max().item() <= 1e-6
+
+
+def _edge_case(P, M, B, seed, fractional):
+    """Counts and delta, integer-valued or fractional (with empty bins)."""
+    rng = np.random.default_rng(seed)
+    if fractional:
+        counts = rng.random((P, M, B)) * 4 * (rng.random((P, M, B)) < 0.6)
+        applied = rng.random(P)
+    else:
+        counts = rng.integers(0, 40, (P, M, B)) * (rng.random((P, M, B)) < 0.3)
+        applied = rng.random(P) < 0.6
+    old = rng.integers(0, B, (P, M)).astype(np.int32)
+    new = rng.integers(0, B, (P, M)).astype(np.int32)
+    col_mask = rng.random((P, M)) < 0.5
+    col_mask[:, 0] = True
+    return (counts.astype(np.float32), old, new, applied.astype(np.float32), col_mask,
+            np.float32(rng.random() * 3.0))
+
+
+@pytest.mark.parametrize("P,M,B", [(6, 23, 256), (9, 5, 13)])
+def test_plain_fused_fractional_matches_reference(P, M, B):
+    """Fractional counts and delta: the plain version against the reference."""
+    args = _edge_case(P, M, B, seed=P * M, fractional=True)
+    c_t, f_t = fused_delta_fitness(*_port(args))
+    c_r, f_r = j_fused_ref(*(jnp.asarray(a) for a in args))
+    np.testing.assert_array_equal(np_(c_t), np.asarray(c_r))
+    np.testing.assert_allclose(np_(f_t), np.asarray(f_r), atol=1e-6)
+
+
+def _aligned_copy(x, like):
+    """A copy of ``x`` at the address of ``like`` modulo 16 bytes."""
+    off = (like.data_ptr() % 16) // like.element_size()
+    out = torch.empty(x.numel() + off, dtype=x.dtype, device=x.device)[off:].view(x.shape)
+    return out.copy_(x)
+
+
+# (label, P, M, B, fractional, view): fractional counts and delta; a slab over
+# 48 KB (the shared-memory opt-in) and over 227 KB (read from device memory);
+# slabs of a size, or at an address, no multiple of 16 bytes
+CUDA_EDGES = [
+    ("fractional", 50, 23, 256, True, None),
+    ("slab over 48 KB", 6, 100, 256, False, None),
+    ("slab over 227 KB", 3, 600, 256, False, None),
+    ("counts[1:] view", 9, 5, 13, True, "slab"),
+    ("one float off alignment", 8, 23, 256, False, "float"),
+]
+
+
+@requires_cuda
+@pytest.mark.parametrize("label,P,M,B,fractional,view", CUDA_EDGES,
+                         ids=[e[0] for e in CUDA_EDGES])
+def test_cuda_fused_edges_match_plain(label, P, M, B, fractional, view):
+    skip_without_cuda()
+    counts, old, new, applied, cm, f_ref = _port(
+        _edge_case(P + (view == "slab"), M, B, seed=P * B, fractional=fractional), "cuda")
+    if view == "slab":
+        counts, old, new, applied, cm = counts[1:], old[1:], new[1:], applied[1:], cm[1:]
+    elif view == "float":
+        buf = torch.empty(counts.numel() + 1, device="cuda")
+        counts = buf[1:].view(counts.shape).copy_(counts)
+    c_r, f_r = fused_delta_fitness_ref(counts.clone(), old, new, applied, cm, f_ref.reshape(1))
+    c_k, f_k = fused_delta_fitness_cuda(_aligned_copy(counts, counts), old, new, applied, cm,
+                                        f_ref.reshape(1))
     assert torch.equal(c_k, c_r)
     assert (f_k - f_r).abs().max().item() <= 1e-6
