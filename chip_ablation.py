@@ -279,6 +279,27 @@ def main() -> None:
                        "fused_delta_fitness_kernel")
         print(f"  {name:16s}: {us:.3f}  (fitness err {err:.2e})")
 
+    # staged slab (bulk copy) against device-memory reads, with and without a
+    # delta: every candidate applied, new = old so repeated calls leave the
+    # counts as they are (two read-modify-writes per column all the same);
+    # order staged, direct, direct, staged
+    ones_p = torch.ones(P, device=dev)
+    print(f"B2, D1 (P, M, B) = ({P}, {M}, {B}), staged against device-memory reads: "
+          "device us per launch")
+    for name in ("b2", "b2_no_bulk", "b2_no_bulk", "b2"):
+        fn = libs[name]
+        counts = h_plain.clone()
+        zd = device_us(torch, lambda: check(b2_call(fn, counts, zero), name),
+                       "fused_delta_fitness_kernel")
+        dd = device_us(torch, lambda: check(fn(counts.data_ptr(), old.data_ptr(), old.data_ptr(),
+                                               ones_p.data_ptr(), cm.data_ptr(),
+                                               f_ref.data_ptr(), fit.data_ptr(), P, M, B,
+                                               stream), name),
+                       "fused_delta_fitness_kernel")
+        if not torch.equal(counts, h_plain):
+            raise SystemExit(f"chip_ablation: {name}: a delta with new = old changed counts")
+        print(f"  {name:16s}: zero delta {zd:.3f}, every candidate's delta {dd:.3f}")
+
     # a wider table: 100 columns, more than the 32 warps of one CTA
     Mw = 100
     gen = make_generator(99, dev)
@@ -289,10 +310,11 @@ def main() -> None:
     old_w = codes_w[rows_w[:, 0].long()].contiguous()
     new_w = codes_w[rows_w[:, 1].long()].contiguous()
     cm_w = torch.rand((P, Mw), generator=gen, device=dev) < 0.25
-    print(f"B2, (P, M, B) = ({P}, {Mw}, {B}), zero delta: device us per launch")
-    for name in ("b2", "b2_cluster2", "b2_cluster4"):
-        def run_w(fn=libs[name]):
-            check(fn(counts_w.data_ptr(), old_w.data_ptr(), new_w.data_ptr(), zero.data_ptr(),
+    print(f"B2, (P, M, B) = ({P}, {Mw}, {B}): device us per launch, zero delta and every "
+          "candidate's delta (new = old)")
+    for name in ("b2", "b2_no_bulk", "b2_cluster2", "b2_cluster4", "b2_no_bulk", "b2"):
+        def run_w(fn=libs[name], applied=zero, new_=new_w):
+            check(fn(counts_w.data_ptr(), old_w.data_ptr(), new_.data_ptr(), applied.data_ptr(),
                      cm_w.data_ptr(), f_ref.data_ptr(), fit.data_ptr(), P, Mw, B, stream),
                   "b2 wide")
         run_w()
@@ -302,7 +324,10 @@ def main() -> None:
         if not err <= FIT_TOL:
             raise SystemExit(f"chip_ablation: {name} at 100 columns: fitness off by {err}")
         us = device_us(torch, run_w, "fused_delta_fitness_kernel")
-        print(f"  {name:16s}: {us:.3f}  (fitness err {err:.2e})")
+        ud = device_us(torch, lambda: run_w(applied=ones_p, new_=old_w),
+                       "fused_delta_fitness_kernel")
+        print(f"  {name:16s}: zero delta {us:.3f}, every candidate's delta {ud:.3f}  "
+              f"(fitness err {err:.2e})")
 
     # where a wrapper's host time goes: the whole call and its parts
     from repro_torch.kernels.entropy.kernel import population_histogram_rows_cuda
