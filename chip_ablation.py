@@ -1,35 +1,32 @@
 #!/usr/bin/env python3
-"""Ablations of the masked-histogram (B1) and fused Gen-DST (B2) kernels on
-one CUDA card, at the inputs SubStrat's main path gives them.
+"""The masked-histogram (B1) and fused Gen-DST (B2) kernels of this tree
+against those of an earlier tree, on one CUDA card, at the inputs SubStrat's
+main path gives them; and where the host time of their calls goes.
 
-    python3 chip_ablation.py [--parent DIR]
+    python3 chip_ablation.py --parent DIR
     python3 chip_ablation.py --host DIR
 
-Each kernel is built once per ablation switch its source names (B2:
-GD_NO_BULK, GD_LOG2_DIRECT, GD_CLUSTER=2 and 4; B1: HB_NO_BATCH, HB_PAD,
-HB_NO_PAD, HB_MATCH_ANY, HB_FLOAT_ATOMICS; the shared-memory atomics each B1
-build compiled to are read from its SASS); each B1 build runs at every tile
-the launcher takes (4 to 32 fold columns per block), through the gathered
-entry and, for the float-add path, the unindexed entry with fractional
-weights.  Every variant is first
-held to the plain version (B1 exact; B2 counts bit-equal, fitness within
-1e-6), then its device time per launch is read from ``torch.profiler``.
-Inputs: paper dataset D1 at full scale, factorized, 100 candidates of 322
-rows and all 23 columns, B = 256, as ``chip_smoke.py`` builds them; B2 with
-a zero delta, as every main-path generation calls it, and also at 100
-columns (a random table of 20,000 rows), more than one CTA's 32 warps.
-
-With ``--parent DIR`` (an unpacked earlier tree of this repository) the
-kernels of that tree are built from its ``src/repro_torch/csrc`` and timed
-on the same inputs: B2 as it is, B1 on the gathered fold (322, 2300) that
-its caller had to build, beside the device time of that whole composition
-(cast, gather, transpose copy, fill, histogram).
+With ``--parent DIR`` (an unpacked earlier tree of this repository) the two
+kernels of that tree are built from its ``src/repro_torch/csrc`` (one nvcc
+each, started together) and timed beside this tree's on the same inputs,
+each first held to the plain version (B1 exact; B2 counts bit-equal,
+fitness within 1e-6); device us per launch from ``torch.profiler``, in the
+order this, parent, parent, this.  Inputs: paper dataset D1 at full scale,
+factorized, 100 candidates of 322 rows and all 23 columns, B = 256, as
+``chip_smoke.py`` builds them.  B1 through the gathered entry, or, for a
+parent whose launcher takes no row index, on the gathered fold (322, 2300)
+that its caller had to build, beside the device time of that whole
+composition (cast, gather, transpose copy, fill, histogram).  B2 with a
+zero delta, as every main-path generation calls it, and with a delta on
+every candidate, at D1 and at 100 columns (a random table of 20,000 rows,
+more columns than a CTA's 32 warps).  Then the host us per call of the
+parts of this tree's B1 and B2 wrappers.
 
 With ``--host DIR`` it only times the host side of the B1 and B2 calls of
 the tree at DIR (this one or an earlier one): each wrapper, and each op as
 Gen-DST calls it, host us per call at D1's inputs.
 
-Needs a CUDA card; imports nothing of JAX.  Prints one line per variant.
+Needs a CUDA card; imports nothing of JAX.  Prints one line per reading.
 """
 from __future__ import annotations
 
@@ -42,40 +39,37 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 FIT_TOL = 1e-6
-# the floor of a launch as the profiler reads it: a kernel that does nothing,
-# launched with B2's grid and block (100 CTAs of 23 warps)
-FLOOR_SRC = r"""
-#include <cuda_runtime.h>
-__global__ void floor_kernel() {}
-extern "C" int launch_floor(int blocks, int threads, void* stream) {
-    floor_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>();
-    return (int)cudaGetLastError();
-}
-"""
 
 
-def build_variants(_build, out_root: Path, variants: dict) -> dict:
-    """{name: (source, [macros])} -> {name: loaded launcher}, one nvcc each,
-    all started together."""
+def build_parent(_build, parent: Path) -> tuple[dict, bool]:
+    """({source stem: loaded launcher} of the parent tree's B1 and B2, one
+    nvcc each, started together; whether its B1 launcher takes a row index)."""
+    csrc = parent / "src" / "repro_torch" / "csrc"
+    out_dir = _build.BUILD_DIR.parent / "ablation_parent"
+    out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, (src, macros) in variants.items():
-        lib = out_root / name / f"lib{src.stem}.so"
-        lib.parent.mkdir(parents=True, exist_ok=True)
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *[f"-D{m}" for m in macros], str(src),
-               "-o", str(lib)]
-        procs[name] = (src, lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                  stderr=subprocess.STDOUT, text=True))
-    out = {}
-    for name, (src, lib, proc) in procs.items():
+    for stem in ("masked_histogram", "fused_delta_fitness"):
+        lib = out_dir / f"lib{stem}.so"
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, str(csrc / f"{stem}.cu"), "-o", str(lib)]
+        procs[stem] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                             stderr=subprocess.STDOUT, text=True))
+    P_, I_ = ctypes.c_void_p, ctypes.c_int
+    libs, gathers = {}, True
+    for stem, (lib, proc) in procs.items():
         log = proc.communicate()[0]
         if proc.returncode != 0:
             print(log)
-            raise SystemExit(f"chip_ablation: nvcc failed on variant {name}")
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  [{name}] {line.strip()}")
-        out[name] = getattr(ctypes.CDLL(str(lib)), f"launch_{src.stem}")
-    return out
+            raise SystemExit(f"chip_ablation: nvcc failed on the parent's {stem}.cu")
+        fn = getattr(ctypes.CDLL(str(lib)), f"launch_{stem}")
+        fn.restype = ctypes.c_int
+        if stem == "masked_histogram" and "const void* rows" not in (
+                csrc / f"{stem}.cu").read_text():
+            fn.argtypes = [P_, P_, P_, I_, I_, I_, I_, P_]    # no row index: an older launcher
+            gathers = False
+        else:
+            fn.argtypes = _build._SIGNATURES[stem]
+        libs[stem] = fn
+    return libs, gathers
 
 
 def main() -> None:
@@ -83,10 +77,9 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_ablation: torch.cuda.is_available() is false")
     ap = argparse.ArgumentParser()
-    ap.add_argument("--parent", type=Path, default=None,
-                    help="an unpacked earlier tree whose kernels to time alongside")
-    ap.add_argument("--host", type=Path, default=None,
-                    help="only time the host side of that tree's B1/B2 calls")
+    group = ap.add_mutually_exclusive_group(required=True)
+    group.add_argument("--parent", type=Path, help="an unpacked earlier tree to time against")
+    group.add_argument("--host", type=Path, help="only time the host side of that tree's calls")
     args = ap.parse_args()
     if args.host is not None:
         host_mode(torch, args.host.resolve())
@@ -97,53 +90,17 @@ def main() -> None:
     from repro_torch.data.tabular import PAPER_DATASETS, make_dataset, train_test_split
     from repro_torch.device import make_generator, resolve_device
     from repro_torch.kernels import _build
+    from repro_torch.kernels.entropy.kernel import population_histogram_rows_cuda
     from repro_torch.kernels.entropy.ref import masked_histogram_ref
+    from repro_torch.kernels.gen_dst.kernel import fused_delta_fitness_cuda
     from repro_torch.kernels.gen_dst.ref import fused_delta_fitness_ref
 
     print(f"card: {cs.smi_line()}")
     dev = resolve_device("cuda")
-    csrc = _build.CSRC
-    hist_src, fit_src = csrc / "masked_histogram.cu", csrc / "fused_delta_fitness.cu"
-    variants = {
-        "b2": (fit_src, []), "b2_no_bulk": (fit_src, ["GD_NO_BULK"]),
-        "b2_log2_direct": (fit_src, ["GD_LOG2_DIRECT"]),
-        "b2_cluster2": (fit_src, ["GD_CLUSTER=2"]), "b2_cluster4": (fit_src, ["GD_CLUSTER=4"]),
-        "b1": (hist_src, []), "b1_no_batch": (hist_src, ["HB_NO_BATCH"]),
-        "b1_pad": (hist_src, ["HB_PAD"]), "b1_match_any": (hist_src, ["HB_MATCH_ANY"]),
-        "b1_float_atomics": (hist_src, ["HB_FLOAT_ATOMICS"]),
-        "b1_no_pad": (hist_src, ["HB_NO_PAD"]),
-    }
-    floor_src = _build.BUILD_DIR.parent / "ablation" / "floor.cu"
-    floor_src.parent.mkdir(parents=True, exist_ok=True)
-    floor_src.write_text(FLOOR_SRC)
-    variants["floor"] = (floor_src, [])
-    if args.parent is not None:
-        pcsrc = args.parent / "src" / "repro_torch" / "csrc"
-        variants["parent_b1"] = (pcsrc / "masked_histogram.cu", [])
-        variants["parent_b2"] = (pcsrc / "fused_delta_fitness.cu", [])
     t0 = time.perf_counter()
-    libs = build_variants(_build, _build.BUILD_DIR.parent / "ablation", variants)
-    print(f"built {len(libs)} variants in {time.perf_counter() - t0:.1f} s")
-    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
-    for name in variants:
-        if name.startswith("b1"):
-            lib = _build.BUILD_DIR.parent / "ablation" / name / "libmasked_histogram.so"
-            sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
-                                  text=True).stdout
-            ops = sorted({w for w in sass.split() if w.startswith(("ATOMS", "MATCH"))})
-            print(f"  [{name}] shared atomics in the SASS: {', '.join(ops) or 'none found'}")
-    P_ = ctypes.c_void_p
-    I_ = ctypes.c_int
-    for name, fn in libs.items():
-        fn.restype = ctypes.c_int
-        if name == "floor":
-            fn.argtypes = [I_, I_, P_]
-        elif name == "parent_b1":
-            fn.argtypes = [P_, P_, P_, I_, I_, I_, I_, P_]
-        elif name == "parent_b2":
-            fn.argtypes = [P_, P_, P_, P_, P_, P_, P_, I_, I_, I_, P_]
-        else:
-            fn.argtypes = _build._SIGNATURES[variants[name][0].stem]
+    lib = _build.library()
+    parent, parent_gathers = build_parent(_build, args.parent.resolve())
+    print(f"built this tree's kernels and the parent's in {time.perf_counter() - t0:.1f} s")
 
     # the main path's inputs, as chip_smoke.py builds them
     X, y = make_dataset(PAPER_DATASETS["D1"], scale=1.0)
@@ -168,172 +125,100 @@ def main() -> None:
         return masked_histogram_ref(f, torch.ones(f.shape[0], device=dev), B).reshape(
             rows_.shape[0], codes_.shape[1], B)
 
-    us = device_us(torch, lambda: check(libs["floor"](P, 23 * 32, stream), "floor"),
-                   "floor_kernel")
-    print(f"floor: an empty kernel of {P} CTAs x {23 * 32} threads: {us:.3f} us per launch")
+    def held(run, out, want, what):
+        out.fill_(-1.0)
+        run()
+        torch.cuda.synchronize()
+        if not torch.equal(out.reshape(want.shape), want):
+            raise SystemExit(f"chip_ablation: {what} not exact")
 
     # --- B1 ---------------------------------------------------------------------
     h_plain = plain_hist(codes, rows)
     out = torch.empty((P, M, B), device=dev)
-    print("B1, gathered entry, D1 (P, n, M, B) = "
-          f"({P}, {n}, {M}, {B}): device us per launch")
-    for name in ("b1", "b1_no_batch", "b1_pad", "b1_match_any", "b1_float_atomics"):
-        for tile in (4, 8, 16, 32):
-            def run(fn=libs[name], tile=tile):
-                check(fn(codes.data_ptr(), None, rows.data_ptr(), out.data_ptr(), N, M, B, P,
-                         n, tile, stream), name)
-            out.fill_(-1.0)
-            run()
-            torch.cuda.synchronize()
-            if not torch.equal(out, h_plain):
-                raise SystemExit(f"chip_ablation: {name} tile {tile} not exact")
-            us = device_us(torch, run, "masked_histogram_kernel")
-            print(f"  {name:16s} tile {tile:2d}: {us:.3f}")
     flat = codes[rows.long()].permute(1, 0, 2).reshape(n, P * M).contiguous()
     ones = torch.ones(n, device=dev)
-    out2 = torch.empty((P * M, B), device=dev)
+    pb1 = parent["masked_histogram"]
 
-    # the unindexed entry (the TPU kernel's function) on the gathered fold:
-    # with weights (float adds) at every build and tile, and without
-    wfrac = torch.rand(n, generator=make_generator(5, dev), device=dev)
-    plain_w = masked_histogram_ref(flat, wfrac, B)
-    for name in ("b1", "b1_no_batch", "b1_no_pad"):
-        for tile in (4, 8, 16, 32):
-            def run_flat(fn=libs[name], tile=tile):
-                check(fn(flat.data_ptr(), wfrac.data_ptr(), None, out2.data_ptr(), n, P * M, B,
-                         1, n, tile, stream), f"{name} unindexed")
-            run_flat()
-            torch.cuda.synchronize()
-            if not torch.allclose(out2, plain_w, rtol=1e-5, atol=1e-5):
-                raise SystemExit(f"chip_ablation: {name} weighted entry off")
-            us = device_us(torch, run_flat, "masked_histogram_kernel")
-            print(f"  {name:16s} unindexed, fractional weights (float adds), tile {tile:2d}: "
-                  f"{us:.3f}")
+    def this_b1():
+        check(lib.launch_masked_histogram(codes.data_ptr(), None, rows.data_ptr(),
+                                          out.data_ptr(), N, M, B, P, n, 8, stream), "b1")
 
-    def run_flat():
-        check(libs["b1"](flat.data_ptr(), None, None, out2.data_ptr(), n, P * M, B, 1, n, 8,
-                         stream), "b1 unindexed")
-    run_flat()
-    torch.cuda.synchronize()
-    if not torch.equal(out2.reshape(P, M, B), h_plain):
-        raise SystemExit("chip_ablation: b1 unindexed entry not exact")
-    us = device_us(torch, run_flat, "masked_histogram_kernel")
-    print(f"  b1 unindexed, no weights (integer adds), tile 8: {us:.3f}")
-    if "parent_b1" in libs:
-        def run_parent():
-            check(libs["parent_b1"](flat.data_ptr(), ones.data_ptr(), out2.data_ptr(), n, P * M,
-                                    B, 8, stream), "parent b1")
-        run_parent()
-        torch.cuda.synchronize()
-        if not torch.equal(out2.reshape(P, M, B), h_plain):
-            raise SystemExit("chip_ablation: parent b1 not exact")
-        us = device_us(torch, run_parent, "masked_histogram_kernel")
-        print(f"  parent b1 on the fold ({n}, {P * M}), weights of 1: {us:.3f}")
-
-        def run_parent_w():
-            check(libs["parent_b1"](flat.data_ptr(), wfrac.data_ptr(), out2.data_ptr(), n,
-                                    P * M, B, 8, stream), "parent b1")
-        us = device_us(torch, run_parent_w, "masked_histogram_kernel")
-        print(f"  parent b1 on the fold, fractional weights: {us:.3f}")
-
+    if parent_gathers:
+        def parent_b1():
+            check(pb1(codes.data_ptr(), None, rows.data_ptr(), out.data_ptr(), N, M, B, P, n, 8,
+                      stream), "parent b1")
+        parent_label = "parent, gathered entry"
+    else:
+        def parent_b1():
+            check(pb1(flat.data_ptr(), ones.data_ptr(), out.data_ptr(), n, P * M, B, 8, stream),
+                  "parent b1")
+        parent_label = f"parent, on the fold ({n}, {P * M}), weights of 1"
+    print(f"B1, D1 (P, n, M, B) = ({P}, {n}, {M}, {B}): device us per launch")
+    for label, run in (("this, gathered entry", this_b1), (parent_label, parent_b1),
+                       (parent_label, parent_b1), ("this, gathered entry", this_b1)):
+        held(run, out, h_plain, label)
+        print(f"  {label}: {device_us(torch, run, 'masked_histogram_kernel'):.3f}")
+    if not parent_gathers:
         def composition():
             sub = codes[rows.long()]
             f = sub.permute(1, 0, 2).reshape(n, P * M).contiguous()
             w = torch.ones(n, device=dev)
-            check(libs["parent_b1"](f.data_ptr(), w.data_ptr(), out2.data_ptr(), n, P * M, B, 8,
-                                    stream), "parent b1")
+            check(pb1(f.data_ptr(), w.data_ptr(), out.data_ptr(), n, P * M, B, 8, stream),
+                  "parent b1")
         comp = device_total_us(torch, composition, calls=50)
         print(f"  parent composition (cast, gather, copy, fill, histogram): {comp[0]:.3f} us "
               f"of device time in {comp[1]:.1f} kernels per call")
 
     # --- B2 ---------------------------------------------------------------------
     f_ref = full_column_entropy(codes, B).mean().reshape(1)
-    old = codes[rows[:, 0].long()].contiguous()
-    new = codes[rows[:, 1].long()].contiguous()
-    cm = torch.zeros((P, M), dtype=torch.bool, device=dev)
-    cm[:, :m] = True
-    zero = torch.zeros(P, device=dev)
-    mut = (torch.arange(P, device=dev) % 2).float()
     fit = torch.empty(P, device=dev)
-    print(f"B2, D1 (P, M, B) = ({P}, {M}, {B}), zero delta: device us per launch")
-
-    def b2_call(fn, counts, applied):
-        return fn(counts.data_ptr(), old.data_ptr(), new.data_ptr(), applied.data_ptr(),
-                  cm.data_ptr(), f_ref.data_ptr(), fit.data_ptr(), P, M, B, stream)
-
-    b2_names = ["b2", "b2_no_bulk", "b2_log2_direct", "b2_cluster2", "b2_cluster4"]
-    if "parent_b2" in libs:
-        b2_names.append("parent_b2")
-    for name in b2_names:
-        fn = libs[name]
-        for applied in (mut, zero):
-            ck = h_plain.clone()
-            check(b2_call(fn, ck, applied), name)
-            cr, fr = fused_delta_fitness_ref(h_plain.clone(), old, new, applied, cm, f_ref)
-            torch.cuda.synchronize()
-            err = (fit - fr).abs().max().item()
-            if not (torch.equal(ck, cr) and err <= FIT_TOL):
-                raise SystemExit(f"chip_ablation: {name} wrong (fitness {err})")
-        counts = h_plain.clone()
-        us = device_us(torch, lambda: check(b2_call(fn, counts, zero), name),
-                       "fused_delta_fitness_kernel")
-        print(f"  {name:16s}: {us:.3f}  (fitness err {err:.2e})")
-
-    # staged slab (bulk copy) against device-memory reads, with and without a
-    # delta: every candidate applied, new = old so repeated calls leave the
-    # counts as they are (two read-modify-writes per column all the same);
-    # order staged, direct, direct, staged
-    ones_p = torch.ones(P, device=dev)
-    print(f"B2, D1 (P, M, B) = ({P}, {M}, {B}), staged against device-memory reads: "
-          "device us per launch")
-    for name in ("b2", "b2_no_bulk", "b2_no_bulk", "b2"):
-        fn = libs[name]
-        counts = h_plain.clone()
-        zd = device_us(torch, lambda: check(b2_call(fn, counts, zero), name),
-                       "fused_delta_fitness_kernel")
-        dd = device_us(torch, lambda: check(fn(counts.data_ptr(), old.data_ptr(), old.data_ptr(),
-                                               ones_p.data_ptr(), cm.data_ptr(),
-                                               f_ref.data_ptr(), fit.data_ptr(), P, M, B,
-                                               stream), name),
-                       "fused_delta_fitness_kernel")
-        if not torch.equal(counts, h_plain):
-            raise SystemExit(f"chip_ablation: {name}: a delta with new = old changed counts")
-        print(f"  {name:16s}: zero delta {zd:.3f}, every candidate's delta {dd:.3f}")
-
-    # a wider table: 100 columns, more than the 32 warps of one CTA
-    Mw = 100
+    zero = torch.zeros(P, device=dev)
+    every = torch.ones(P, device=dev)
     gen = make_generator(99, dev)
+    Mw = 100
     card = torch.randint(2, B + 1, (Mw,), generator=gen, device=dev)
     codes_w = (torch.rand((20000, Mw), generator=gen, device=dev) * card).to(torch.int32)
     rows_w = torch.randint(0, 20000, (P, n), generator=gen, device=dev, dtype=torch.int32)
-    counts_w = plain_hist(codes_w, rows_w)
-    old_w = codes_w[rows_w[:, 0].long()].contiguous()
-    new_w = codes_w[rows_w[:, 1].long()].contiguous()
-    cm_w = torch.rand((P, Mw), generator=gen, device=dev) < 0.25
-    print(f"B2, (P, M, B) = ({P}, {Mw}, {B}): device us per launch, zero delta and every "
-          "candidate's delta (new = old)")
-    for name in ("b2", "b2_no_bulk", "b2_cluster2", "b2_cluster4", "b2_no_bulk", "b2"):
-        def run_w(fn=libs[name], applied=zero, new_=new_w):
-            check(fn(counts_w.data_ptr(), old_w.data_ptr(), new_.data_ptr(), applied.data_ptr(),
-                     cm_w.data_ptr(), f_ref.data_ptr(), fit.data_ptr(), P, Mw, B, stream),
-                  "b2 wide")
-        run_w()
-        _, fr = fused_delta_fitness_ref(counts_w.clone(), old_w, new_w, zero, cm_w, f_ref)
-        torch.cuda.synchronize()
-        err = (fit - fr).abs().max().item()
-        if not err <= FIT_TOL:
-            raise SystemExit(f"chip_ablation: {name} at 100 columns: fitness off by {err}")
-        us = device_us(torch, run_w, "fused_delta_fitness_kernel")
-        ud = device_us(torch, lambda: run_w(applied=ones_p, new_=old_w),
-                       "fused_delta_fitness_kernel")
-        print(f"  {name:16s}: zero delta {us:.3f}, every candidate's delta {ud:.3f}  "
-              f"(fitness err {err:.2e})")
+    cm = torch.zeros((P, M), dtype=torch.bool, device=dev)
+    cm[:, :m] = True
+    shapes = {
+        M: (h_plain, codes[rows[:, 0].long()].contiguous(),
+            codes[rows[:, 1].long()].contiguous(), cm),
+        Mw: (plain_hist(codes_w, rows_w), codes_w[rows_w[:, 0].long()].contiguous(),
+             codes_w[rows_w[:, 1].long()].contiguous(),
+             torch.rand((P, Mw), generator=gen, device=dev) < 0.25),
+    }
+    for Mx, (counts0, old, new, cmx) in shapes.items():
+        print(f"B2, (P, M, B) = ({P}, {Mx}, {B}): device us per launch, zero delta and a "
+              "delta on every candidate (new = old, so repeated calls leave the counts)")
+        for label, fn in (("this", lib.launch_fused_delta_fitness),
+                          ("parent", parent["fused_delta_fitness"]),
+                          ("parent", parent["fused_delta_fitness"]),
+                          ("this", lib.launch_fused_delta_fitness)):
+            def run(fn=fn, counts=None, applied=zero, new_=new):
+                check(fn(counts.data_ptr(), old.data_ptr(), new_.data_ptr(), applied.data_ptr(),
+                         cmx.data_ptr(), f_ref.data_ptr(), fit.data_ptr(), P, Mx, B, stream),
+                      f"{label} b2")
+            mut = (torch.arange(P, device=dev) % 2).float()
+            ck = counts0.clone()
+            run(counts=ck, applied=mut)
+            cr, fr = fused_delta_fitness_ref(counts0.clone(), old, new, mut, cmx, f_ref)
+            torch.cuda.synchronize()
+            err = (fit - fr).abs().max().item()
+            if not (torch.equal(ck, cr) and err <= FIT_TOL):
+                raise SystemExit(f"chip_ablation: {label} b2 wrong at M={Mx} (fitness {err})")
+            counts = counts0.clone()
+            us_zero = device_us(torch, lambda: run(counts=counts), "fused_delta_fitness_kernel")
+            us_delta = device_us(torch, lambda: run(counts=counts, applied=every, new_=old),
+                                 "fused_delta_fitness_kernel")
+            if not torch.equal(counts, counts0):
+                raise SystemExit(f"chip_ablation: {label} b2: a delta with new = old moved counts")
+            print(f"  {label:6s}: zero delta {us_zero:.3f}, every candidate's delta "
+                  f"{us_delta:.3f}  (fitness err {err:.2e})")
 
     # where a wrapper's host time goes: the whole call and its parts
-    from repro_torch.kernels.entropy.kernel import population_histogram_rows_cuda
-    from repro_torch.kernels.gen_dst.kernel import fused_delta_fitness_cuda
     counts = h_plain.clone()
-    lib = _build.library()
+    old, new = shapes[M][1], shapes[M][2]
     parts = {
         "B1 wrapper (population_histogram_rows_cuda)":
             lambda: population_histogram_rows_cuda(codes, rows, B),
@@ -343,8 +228,7 @@ def main() -> None:
         "codes.new_empty((P, M, B), dtype=float32)":
             lambda: codes.new_empty((P, M, B), dtype=torch.float32),
         "_build.stream(device)": lambda: _build.stream(0),
-        "B1 ctypes launch alone": lambda: lib.launch_masked_histogram(
-            codes.data_ptr(), None, rows.data_ptr(), out.data_ptr(), N, M, B, P, n, 8, stream),
+        "B1 ctypes launch alone": this_b1,
         "B2 ctypes launch alone": lambda: lib.launch_fused_delta_fitness(
             counts.data_ptr(), old.data_ptr(), new.data_ptr(), zero.data_ptr(), cm.data_ptr(),
             f_ref.data_ptr(), fit.data_ptr(), P, M, B, stream),

@@ -15,15 +15,17 @@ Phases, in order; any failure exits non-zero and prints no result:
    dataset D1 (100 candidates of 322 rows x 23 columns gathered from the
    103,904-row table, B = 256) and at edge shapes (ragged P, M and B no
    multiple of 4, tiles across candidates, padding bins, large B): exact.
+   A row index outside the table must stop the kernel with an error, in a
+   process of its own (its CUDA context is unusable after).
    The unindexed entry on the same fold (322, 2300) and the padding edges:
    exact with uniform weights, fractional weights within rtol = atol = 1e-5.
    Timed beside its plain version, one ``torch.bincount`` call and its bound,
    with its device time and its host time per call.
 3. The fused Gen-DST kernel against its plain version at (100, 23, 256) and
    at ragged P, and at edge shapes
-   (fractional counts and delta, slabs over 48 KB and over 227 KB, slabs of
-   a size or at an address no multiple of 16 bytes, one column, B no
-   multiple of 4): counts bit-equal, fitness within 1e-6.  Timed the same
+   (fractional counts and delta, 100 and 600 columns, more than a CTA's 32
+   warps, slabs of a size or at an address no multiple of 16 bytes, one
+   column, B no multiple of 4): counts bit-equal, fitness within 1e-6.  Timed the same
    way.
 4. The small-input check: Gen-DST on the card (kernels) and on the CPU (plain
    versions) from the same draws must find the same subset.  Then a full-size
@@ -88,6 +90,26 @@ FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # its final state within SSD_STATE_RTOL of the state's largest magnitude
 SSD_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
 SSD_STATE_RTOL = 1e-3
+# the gathered histogram with a row index outside the table, in a process of
+# its own: prints "raised" if the error surfaced and "unusable" if the CUDA
+# context stayed broken after it
+BAD_ROW_SCRIPT = """
+import sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from repro_torch.kernels.entropy.ops import population_histogram_rows
+codes = torch.zeros((10, 3), dtype=torch.int32, device="cuda")
+rows = torch.tensor([[0, 10]], dtype=torch.int32, device="cuda")
+try:
+    population_histogram_rows(codes, rows, 4)
+    torch.cuda.synchronize()
+except RuntimeError:
+    print("raised")
+try:
+    torch.ones(1, device="cuda").sum().item()
+except RuntimeError:
+    print("unusable")
+"""
 
 
 def fail(msg: str) -> None:
@@ -653,6 +675,11 @@ def main() -> None:
         if code_max is not None and hk[..., code_max:].any():
             fail(f"masked_histogram: gathered padding bins not zero at {(Pe, ne, Ne, Me, Be)}")
         print(f"masked_histogram gathered   P={Pe} n={ne} N={Ne} M={Me} B={Be}: exact")
+    bad = subprocess.run([sys.executable, "-c", BAD_ROW_SCRIPT, str(ROOT / "src")],
+                         capture_output=True, text=True, timeout=300).stdout.split()
+    if bad != ["raised", "unusable"]:
+        fail(f"masked_histogram: a row index outside the table gave {bad}, not an error")
+    print("masked_histogram gathered   a row outside the table: an error at the synchronise")
     col_off = (torch.arange(P * M, device=dev) * B)[None, :]
     flat_idx = (flat.long() + col_off).reshape(-1)
     w_rep = ones[:, None].expand(n, P * M).reshape(-1).contiguous()
@@ -720,9 +747,9 @@ def main() -> None:
             err = check_fused(f"P={Pe} M={M} B={B} {applied_kind}", counts, old, new, applied, cm)
             if Pe == P:
                 fit_err = max(fit_err, err)
-    # edge shapes: fractional counts and delta; a slab over 48 KB (the opt-in);
-    # over 227 KB, and slabs of a size, or at an address, no multiple of 16
-    # bytes (the device-memory route); one column; B no multiple of 4
+    # edge shapes: fractional counts and delta; 100 and 600 columns, more than
+    # a CTA's 32 warps; slabs of a size, or at an address, no multiple of 16
+    # bytes (scalar loads); one column; B no multiple of 4
     for label, Pe, Me, Be, frac, view in (
             ("fractional counts and delta", 50, M, B, True, None),
             ("slab over 48 KB", 6, 100, 256, False, None),

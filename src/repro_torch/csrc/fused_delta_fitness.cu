@@ -18,44 +18,39 @@
 // launch, one round trip to device memory, and the reductions.  The design
 // spends its effort there:
 //
+//   * One CTA per candidate, one warp per column (23 warps at D1; a CTA of 32
+//     warps walks wider tables).  The warps read their columns straight from
+//     device memory: each lane reads 16-byte vectors of its bins and keeps
+//     three independent float64 sums (total, positive mass, c log2 c), so a
+//     lane's loads and logs overlap; three shuffle reductions per column.
 //   * Hopper's bulk asynchronous copy (TMA, `cp.async.bulk` completing on an
-//     `mbarrier`).  A candidate's counts are one contiguous slab of M*B*4 bytes
-//     (23,552 B at D1); one thread stages it into shared memory with one copy,
-//     1-D, so no tensor map is encoded on the host.  While it flies the warps
-//     load their columns' codes, mask bits and the delta.
-//   * The delta is applied in shared memory by one lane per column, as the
-//     plain version's `-w` then `+w`, and only the (at most two) bins that
-//     change are stored back to device memory; none when `applied[p]` is 0.
-//   * One warp per column: each lane reads 16-byte vectors of its bins and
-//     keeps three independent float64 sums (total, positive mass, c log2 c), so
-//     a lane's loads and logs overlap; three shuffle reductions per column.
+//     `mbarrier`, 1-D, so no tensor map is encoded on the host) stages an 8 KB
+//     float64 table of log2(k), k < 1024, into each CTA's shared memory while
+//     the warps load their first column's codes, mask bit and the delta.
+//     Staging each candidate's whole counts slab the same way measured slower
+//     than reading it from device memory at every shape tried: at D1 (23
+//     columns) and at 100 columns, with a zero delta and with a delta on every
+//     candidate (chip_ablation.py at commit b3bbcc9; PERF.md), so the slab is
+//     not staged and every shape takes the same route.
+//   * The delta is applied in place by one lane per column, as the plain
+//     version's `-w` then `+w`, before the warp reads the column; nothing is
+//     stored when `applied[p]` is 0.
 //   * The entropy uses h = (C+ log2 T - sum_{c>0} c log2 c) / T with T the
 //     column total and C+ its positive mass, the plain version's
 //     -sum q log2 q with q = c / T rewritten; log2 of an integer count below
-//     1024 comes from a float64 table that the same bulk copy stages per block,
-//     any other value is computed.  Sums stay float64 and the fitness rounds
-//     to float32 once, as in the plain version: float32 sums of ~256 terms near
+//     1024 comes from the table (a float64 log2 per bin cost ~2 us at D1), any
+//     other value is computed.  Sums stay float64 and the fitness rounds to
+//     float32 once, as in the plain version: float32 sums of ~256 terms near
 //     8 bits carry order-dependent errors of ~1e-6.
 //   * The column-masked mean is a shuffle reduction over the warps' partial
 //     sums, then one thread writes the fitness.
-//   * Filling the card at P = 100 on 132 SMs: one CTA per candidate, one warp
-//     per column (23 warps at D1).  Splitting a candidate over a thread-block
-//     cluster of 2 or 4 CTAs, whose partial sums meet in the first CTA's
-//     shared memory through distributed shared memory (`mapa` +
-//     `st.shared::cluster`), fills more SMs but measured slower at 23 and at
-//     100 columns (chip_ablation.py); it stays as the GD_CLUSTER switch.
-//   * A slab that does not fit shared memory (over ~218 KB per CTA) or whose
-//     address or size is no multiple of 16 bytes is read by the same warps
-//     straight from device memory, with the delta applied there; the rest of
-//     the kernel is the same.
+//   * Filling the card at P = 100 on 132 SMs: splitting a candidate over a
+//     thread-block cluster of 2 or 4 CTAs, whose partial sums met through
+//     distributed shared memory, fills more SMs but measured slower at 23 and
+//     at 100 columns (same script and commit), so a candidate is one CTA.
 //
 // Tensor cores have no role: the work is ~0.6 M independent bin reductions
 // with a data-dependent log, no matrix product.
-//
-// Ablation switches (chip_ablation.py builds the kernel with each): GD_NO_BULK
-// reads every slab straight from device memory; GD_LOG2_DIRECT takes a float64
-// log2 of every nonzero bin instead of the table; GD_CLUSTER=2 or 4 shares each
-// candidate among that many CTAs of a cluster.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -66,14 +61,8 @@ namespace {
 constexpr int MAX_WARPS = 32;
 constexpr int LOG2_N = 1024;                            // table of log2(k), k < LOG2_N
 constexpr int LOG2_BYTES = LOG2_N * 8;
-constexpr int HEADER = 1024;                            // mbarrier and partial sums
-constexpr int SMEM_LIMIT = 232448;                      // a block's shared memory on Hopper
-constexpr int SLAB_LIMIT = SMEM_LIMIT - HEADER - LOG2_BYTES;
+constexpr int HEADER = 1024;                            // mbarrier and the warps' partial sums
 constexpr int MAX_DEVICES = 64;
-#ifndef GD_CLUSTER
-#define GD_CLUSTER 1
-#endif
-static_assert(GD_CLUSTER == 1 || GD_CLUSTER == 2 || GD_CLUSTER == 4, "GD_CLUSTER: 1, 2 or 4");
 
 __device__ __align__(16) double g_log2_table[LOG2_N];
 bool g_table_ready[MAX_DEVICES];
@@ -116,24 +105,6 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
                  :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
 }
 
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_arrive() {
-    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// store `v` at the address of `local` in the shared memory of cluster CTA `rank`
-__device__ __forceinline__ void st_cluster(const double* local, uint32_t rank, double v) {
-    uint32_t remote;
-    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-                 : "=r"(remote) : "r"(smem_u32(local)), "r"(rank));
-    asm volatile("st.shared::cluster.f64 [%0], %1;\n" :: "r"(remote), "d"(v) : "memory");
-}
-
 __device__ __forceinline__ double warp_sum(double v) {
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
@@ -141,10 +112,8 @@ __device__ __forceinline__ double warp_sum(double v) {
 }
 
 __device__ __forceinline__ double log2_of(double c, const double* lg) {
-#ifndef GD_LOG2_DIRECT
     const int k = (int)c;
     if (k < LOG2_N && (double)k == c) return lg[k];
-#endif
     return log2(c);
 }
 
@@ -159,7 +128,7 @@ __device__ __forceinline__ void add_bin(Sums& s, float c, const double* lg) {
     }
 }
 
-// entropy of one column of B bins at `row` (shared or device memory), by one warp
+// entropy of one column of B bins at `row`, by one warp
 __device__ __forceinline__ double column_entropy(const float* row, int B, const double* lg,
                                                  int lane) {
     Sums s;
@@ -182,73 +151,49 @@ __device__ __forceinline__ double column_entropy(const float* row, int B, const 
     return (pos * log2_of(total, lg) - clogc) / total;
 }
 
-// one CTA per (candidate, cluster rank); a cluster of SPLIT CTAs per candidate
-// (GD_CLUSTER; 1 in the build)
-template <int SPLIT>
+// one CTA per candidate, one warp per column
 __global__ void __launch_bounds__(MAX_WARPS * 32)
 fused_delta_fitness_kernel(float* __restrict__ counts, const int32_t* __restrict__ old_codes,
                            const int32_t* __restrict__ new_codes,
                            const float* __restrict__ applied, const bool* __restrict__ col_mask,
                            const float* __restrict__ f_ref, float* __restrict__ fit,
-                           int M, int B, int stage_slab) {
+                           int M, int B) {
+    // dynamic shared memory: the same layout in static arrays measured slower
     extern __shared__ __align__(16) unsigned char smem[];
-    uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+    uint64_t& bar = *reinterpret_cast<uint64_t*>(smem);
     double* warp_num = reinterpret_cast<double*>(smem + 64);           // [MAX_WARPS]
     double* warp_den = warp_num + MAX_WARPS;                           // [MAX_WARPS]
-    double* rank_num = warp_den + MAX_WARPS;                           // [SPLIT]
-    double* rank_den = rank_num + 4;                                   // [SPLIT]
     double* lg = reinterpret_cast<double*>(smem + HEADER);             // [LOG2_N]
-    float* slab = reinterpret_cast<float*>(smem + HEADER + LOG2_BYTES);
-
-    if (SPLIT > 1) cluster_arrive_relaxed();   // waited on before the partial sums meet
-    const int p = blockIdx.x / SPLIT;
-    const int rank = blockIdx.x % SPLIT;       // the CTA's rank in its cluster
-    const int per = (M + SPLIT - 1) / SPLIT;
-    const int m0 = min(M, rank * per);
-    const int m1 = min(M, m0 + per);
+    const int p = blockIdx.x;
     const int warp = threadIdx.x >> 5;
     const int lane = threadIdx.x & 31;
     const int nwarps = blockDim.x >> 5;
 
-    float* gslab = counts + ((size_t)p * M + m0) * B;
-    const size_t slab_bytes = (size_t)(m1 - m0) * B * sizeof(float);
-    const bool staged = stage_slab && m1 > m0 &&
-                        ((reinterpret_cast<uintptr_t>(gslab) | slab_bytes) & 15) == 0;
-    if (threadIdx.x == 0) mbar_init(bar, 1);
+    if (threadIdx.x == 0) mbar_init(&bar, 1);
     __syncthreads();
     if (threadIdx.x == 0) {
-        mbar_expect_tx(bar, LOG2_BYTES + (staged ? (uint32_t)slab_bytes : 0u));
-        bulk_load(lg, g_log2_table, LOG2_BYTES, bar);
-        if (staged) bulk_load(slab, gslab, (uint32_t)slab_bytes, bar);
+        mbar_expect_tx(&bar, LOG2_BYTES);
+        bulk_load(lg, g_log2_table, LOG2_BYTES, &bar);
     }
 
-    // while the copies fly: the delta and this warp's first column's operands
+    // while the table flies: the delta and this warp's first column's operands
     const float w = applied[p];
-    int m = m0 + warp;
+    int m = warp;
     int oc = 0, nc = 0;
     bool keep = false;
-    if (m < m1) {
+    if (m < M) {
         oc = old_codes[(size_t)p * M + m];
         nc = new_codes[(size_t)p * M + m];
         keep = col_mask[(size_t)p * M + m];
     }
-    mbar_wait(bar, 0);
+    mbar_wait(&bar, 0);
 
     double num = 0.0, den = 0.0;
-    for (; m < m1; m += nwarps) {
-        float* grow = counts + ((size_t)p * M + m) * B;
-        float* row = staged ? slab + (size_t)(m - m0) * B : grow;
+    for (; m < M; m += nwarps) {
+        float* row = counts + ((size_t)p * M + m) * B;
         if (lane == 0 && w != 0.0f) {          // at most two bins change
-            if ((unsigned)oc < (unsigned)B) {
-                const float v = row[oc] + (-w);
-                row[oc] = v;
-                if (staged) grow[oc] = v;
-            }
-            if ((unsigned)nc < (unsigned)B) {
-                const float v = row[nc] + w;
-                row[nc] = v;
-                if (staged) grow[nc] = v;
-            }
+            if ((unsigned)oc < (unsigned)B) row[oc] = row[oc] + (-w);
+            if ((unsigned)nc < (unsigned)B) row[nc] = row[nc] + w;
         }
         __syncwarp();
         const double h = column_entropy(row, B, lg, lane);
@@ -257,14 +202,14 @@ fused_delta_fitness_kernel(float* __restrict__ counts, const int32_t* __restrict
             den += 1.0;
         }
         const int next = m + nwarps;
-        if (next < m1) {
+        if (next < M) {
             oc = old_codes[(size_t)p * M + next];
             nc = new_codes[(size_t)p * M + next];
             keep = col_mask[(size_t)p * M + next];
         }
     }
 
-    // the masked mean: warps' partial sums by shuffles, then across the cluster
+    // the masked mean: the warps' partial sums by shuffles
     if (lane == 0) {
         warp_num[warp] = num;
         warp_den[warp] = den;
@@ -273,59 +218,8 @@ fused_delta_fitness_kernel(float* __restrict__ counts, const int32_t* __restrict
     if (warp == 0) {
         num = warp_sum(lane < nwarps ? warp_num[lane] : 0.0);
         den = warp_sum(lane < nwarps ? warp_den[lane] : 0.0);
+        if (lane == 0) fit[p] = (float)(-fabs(num / fmax(den, 1.0) - (double)f_ref[0]));
     }
-    if (SPLIT > 1) {
-        cluster_wait();                        // every CTA of the cluster has started
-        if (threadIdx.x == 0) {
-            st_cluster(&rank_num[rank], 0, num);
-            st_cluster(&rank_den[rank], 0, den);
-        }
-        cluster_arrive();
-        cluster_wait();
-        if (rank != 0) return;
-        if (threadIdx.x == 0) {
-            num = den = 0.0;
-            for (int r = 0; r < SPLIT; ++r) {
-                num += rank_num[r];
-                den += rank_den[r];
-            }
-        }
-    }
-    if (threadIdx.x == 0) fit[p] = (float)(-fabs(num / fmax(den, 1.0) - (double)f_ref[0]));
-}
-
-template <int SPLIT>
-cudaError_t launch(float* counts, const int32_t* old_codes, const int32_t* new_codes,
-                   const float* applied, const bool* col_mask, const float* f_ref, float* fit,
-                   int P, int M, int B, cudaStream_t stream) {
-    const int per = (M + SPLIT - 1) / SPLIT;
-    const size_t slab = (size_t)per * B * sizeof(float);
-#ifdef GD_NO_BULK
-    const int stage = 0;
-#else
-    const int stage = slab <= (size_t)SLAB_LIMIT;
-#endif
-    const size_t smem = HEADER + LOG2_BYTES + (stage ? slab : 0);
-    if (smem > 48 * 1024) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            fused_delta_fitness_kernel<SPLIT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)smem);
-        if (err != cudaSuccess) return err;
-    }
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3((unsigned)P * SPLIT);
-    cfg.blockDim = dim3(32 * (per < MAX_WARPS ? per : MAX_WARPS));
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = stream;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = SPLIT;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = SPLIT > 1 ? 1 : 0;
-    return cudaLaunchKernelEx(&cfg, fused_delta_fitness_kernel<SPLIT>, counts, old_codes,
-                              new_codes, applied, col_mask, f_ref, fit, M, B, stage);
 }
 
 }  // namespace
@@ -351,10 +245,9 @@ extern "C" int launch_fused_delta_fitness(void* counts, const void* old_codes,
         if (err != cudaSuccess) return (int)err;
         g_table_ready[dev] = true;
     }
-    err = launch<GD_CLUSTER>((float*)counts, (const int32_t*)old_codes,
-                             (const int32_t*)new_codes, (const float*)applied,
-                             (const bool*)col_mask, (const float*)f_ref, (float*)fit, P, M, B,
-                             (cudaStream_t)stream);
-    if (err != cudaSuccess) return (int)err;
+    fused_delta_fitness_kernel<<<P, 32 * (M < MAX_WARPS ? M : MAX_WARPS), HEADER + LOG2_BYTES,
+                                 (cudaStream_t)stream>>>(
+        (float*)counts, (const int32_t*)old_codes, (const int32_t*)new_codes,
+        (const float*)applied, (const bool*)col_mask, (const float*)f_ref, (float*)fit, M, B);
     return (int)cudaGetLastError();
 }

@@ -28,70 +28,54 @@
 //   * with uniform weights (the gathered entry) the shared counts are integers
 //     and each cell is one integer shared-memory atomic add; a float32 add,
 //     which weights need, is a compare-and-swap loop in shared memory
-//     (ATOMS.CAST.SPIN in the SASS) and measured 2.5x slower (the
-//     HB_FLOAT_ATOMICS switch); integer counts below 2^24 convert to float32
-//     exactly;
+//     (ATOMS.CAST.SPIN in the SASS) and measured 2.5x slower for the uniform
+//     path; integer counts below 2^24 convert to float32 exactly;
 //   * a warp's lanes cover `tile` columns of 32 / tile rows, so no two lanes of
 //     an instruction add into the same column unless they also hold different
 //     rows (the compiler turns the constant +1 into a warp-aggregated
-//     increment); padding the counts' rows to an odd stride, so that equal
-//     codes of different columns fall in different banks, measured slower
-//     with integer counts (the HB_PAD switch) and faster with float adds
-//     (HB_NO_PAD), so only the weighted path pads, and takes tiles of 16;
+//     increment, which measured faster than aggregating equal codes with
+//     __match_any_sync); padding the counts' rows to an odd stride, so that
+//     equal codes of different columns fall in different banks, measured
+//     slower with integer counts and faster with float adds, so only the
+//     weighted path pads, and takes tiles of 16;
 //   * each thread issues a batch of BATCH row-index loads, then BATCH code (and
 //     weight) loads, and only then its BATCH atomics, so a thread waits for one
-//     round trip per batch, not one per cell; the index math is 32-bit, with one
-//     widening multiply per code address;
+//     round trip per batch, not one per cell (measured faster than a load per
+//     atomic); the index math is 32-bit, with one widening multiply per code
+//     address;
 //   * the tile is written out with 16-byte stores where the output is aligned.
 //
 // Rows are not split across blocks, so there is no cross-block reduction.
 // With 0/1 weights every partial sum is an integer below 2^24 and the result is
 // bit-exact whatever order the atomics land in; fractional weights may sum in a
 // different order than the plain version (see kernels/entropy/kernel.py).
-// Codes outside [0, B) are ignored; a row index outside [0, N) traps (an error
-// at the next synchronise).  No tensor-core or TMA path: the gathered rows are
-// 92-byte pieces of the table, and the work is a scatter.
-//
-// Ablation switches (chip_ablation.py builds the kernel with each): HB_NO_BATCH
-// makes each load feed its atomic before the next load; HB_PAD pads the
-// counts' rows to an odd stride on both paths, HB_NO_PAD on neither; on the
-// uniform-weight path, HB_FLOAT_ATOMICS counts
-// with float32 atomic adds and HB_MATCH_ANY aggregates equal (column, code)
-// lanes of a warp with __match_any_sync before the atomic.
+// Codes outside [0, B) are ignored.  A row index outside [0, N) traps: an
+// error at the next synchronise that leaves the CUDA context unusable, as a
+// device-side assert of PyTorch's own indexing does; the host does not check
+// the indices, which would wait for the device.  No tensor-core or TMA path:
+// the gathered rows are 92-byte pieces of the table, and the work is a
+// scatter.  The measurements behind each choice (chip_ablation.py with the
+// variants built by compile-time switches, at commit b3bbcc9) are in PERF.md.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int THREADS = 512;
-#ifdef HB_NO_BATCH
-constexpr int BATCH = 1;
-#else
 constexpr int BATCH = 8;
-#endif
 constexpr int SMEM_LIMIT = 232448;     // a block's shared memory on Hopper
 
 // row stride of the shared counts: odd (B | 1) for float adds, whose
 // compare-and-swap loops then meet fewer bank conflicts; B for integer counts
 template <bool WEIGHTED>
 __host__ __device__ __forceinline__ int padded_stride(int B) {
-#if defined(HB_NO_PAD)
-    return B;
-#elif defined(HB_PAD)
-    return B | 1;
-#else
     return WEIGHTED ? (B | 1) : B;
-#endif
 }
 
 // bin value of the shared counts: float32 sums (weighted) or integer counts
 template <bool WEIGHTED>
 __device__ __forceinline__ float bin_value(uint32_t raw) {
-#ifdef HB_FLOAT_ATOMICS
-    return __uint_as_float(raw);
-#else
     return WEIGHTED ? __uint_as_float(raw) : (float)raw;
-#endif
 }
 
 template <bool WEIGHTED>
@@ -140,20 +124,11 @@ masked_histogram_kernel(const int32_t* __restrict__ codes, const float* __restri
             }
 #pragma unroll
             for (int k = 0; k < BATCH; ++k) {
-                const bool ok = (unsigned)code[k] < (unsigned)B;
-                if (WEIGHTED) {
-                    if (ok) atomicAdd(reinterpret_cast<float*>(h + code[k]), wt[k]);
-                    continue;
-                }
-#if defined(HB_MATCH_ANY)
-                // lanes of this warp counting the same (column, code): one add
-                const unsigned same = __match_any_sync(__activemask(), ok ? cc * B + code[k] : -1);
-                if (ok && lane == __ffs(same) - 1) atomicAdd(h + code[k], (uint32_t)__popc(same));
-#elif defined(HB_FLOAT_ATOMICS)
-                if (ok) atomicAdd(reinterpret_cast<float*>(h + code[k]), 1.0f);
-#else
-                if (ok) atomicAdd(h + code[k], 1u);
-#endif
+                if ((unsigned)code[k] >= (unsigned)B) continue;
+                if (WEIGHTED)
+                    atomicAdd(reinterpret_cast<float*>(h + code[k]), wt[k]);
+                else
+                    atomicAdd(h + code[k], 1u);
             }
         }
     }

@@ -34,7 +34,7 @@ from .. import _build
 __all__ = ["masked_histogram_cuda", "population_histogram_rows_cuda", "launches", "tile_for"]
 
 launches = 0
-# fold columns per block, the fastest in chip_ablation.py: integer counts
+# fold columns per block, the fastest measured (PERF.md, section 6): integer counts
 # (uniform weights) and float sums (weights), whose rows the kernel pads to an
 # odd stride
 TILE = {False: 8, True: 16}
@@ -87,7 +87,10 @@ def masked_histogram_cuda(codes: torch.Tensor, weights: torch.Tensor, bins: int)
 def population_histogram_rows_cuda(codes: torch.Tensor, rows: torch.Tensor,
                                    bins: int) -> torch.Tensor:
     """(P, M, bins) f32: out[p, m, b] = |{i : codes[rows[p, i], m] == b}| for
-    (N, M) int32 codes and (P, n) int32 row indices in [0, N)."""
+    (N, M) int32 codes and (P, n) int32 row indices in [0, N).  The indices
+    are not checked on the host, which would wait for the device: one
+    outside [0, N) traps in the kernel, an error at the next synchronise
+    that leaves the CUDA context unusable (as a device-side assert does)."""
     dev = codes.get_device()
     if dev < 0 or rows.get_device() != dev:
         raise ValueError("population_histogram_rows_cuda: tensors must be on one CUDA device")

@@ -43,9 +43,16 @@ def population_histogram_rows(codes: torch.Tensor, rows: torch.Tensor, bins: int
     """``population_histogram(codes[rows], bins)``: out[p, m, b] =
     |{i : codes[rows[p, i], m] == b}| for (N, M) codes and (P, n) row indices.
 
-    On a card one kernel launch gathers the rows as it counts them (codes and
-    rows int32, contiguous, indices in [0, N)); on the CPU it is exactly that
-    composition, the plain version."""
+    On a card one kernel launch gathers the rows as it counts them; rows of
+    another integer dtype are converted to int32 and strided inputs copied
+    first, so the op takes what the plain version takes.  On the CPU it is
+    exactly that composition, the plain version.  An index outside [0, N) is
+    an error on both: the plain version raises IndexError, and the kernel
+    traps, as PyTorch's own indexing of a CUDA tensor does with its
+    device-side assert, so the error surfaces at the next synchronise and
+    leaves the process's CUDA context unusable."""
     if codes.is_cuda:
-        return population_histogram_rows_cuda(codes, rows, bins)
+        if rows.dtype != torch.int32:
+            rows = rows.to(torch.int32)
+        return population_histogram_rows_cuda(codes.contiguous(), rows.contiguous(), bins)
     return population_histogram(codes[rows.long()], bins)

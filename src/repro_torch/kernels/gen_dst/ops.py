@@ -30,9 +30,10 @@ def fused_delta_fitness(counts, old_codes, new_codes, applied, col_mask, f_ref):
     ``counts'[p]`` is ``counts[p]`` with row ``old -> new`` swapped where
     ``applied[p]``; ``fitness[p] = -|F(d_p) - F(D)|`` from the updated
     counts under ``col_mask[p]``.  ``counts`` must be contiguous: it is
-    updated in place.  On a card every input must be contiguous (the kernel
-    raises otherwise); inputs already of the kernel's dtypes and on its
-    device, as Gen-DST passes them, go to it unconverted."""
+    updated in place.  The other inputs are taken as the plain version takes
+    them, strided or of another dtype for ``applied``, ``col_mask`` and
+    ``f_ref``; on a card, inputs already contiguous and of the kernel's dtypes,
+    as Gen-DST passes them, go to it unconverted."""
     if not counts.is_contiguous():
         raise ValueError("fused_delta_fitness: counts must be contiguous (updated in place)")
     if counts.is_cuda:
@@ -43,7 +44,8 @@ def fused_delta_fitness(counts, old_codes, new_codes, applied, col_mask, f_ref):
         if not (isinstance(f_ref, torch.Tensor) and f_ref.dtype == torch.float32
                 and f_ref.get_device() == counts.get_device()):
             f_ref = torch.as_tensor(f_ref, dtype=torch.float32, device=counts.device)
-        return fused_delta_fitness_cuda(counts, old_codes, new_codes, applied, col_mask, f_ref)
+        return fused_delta_fitness_cuda(counts, old_codes.contiguous(), new_codes.contiguous(),
+                                        applied.contiguous(), col_mask.contiguous(), f_ref)
     lead = old_codes.shape[:-1]
     M, B = counts.shape[-2:]
     f_ref = torch.as_tensor(f_ref, dtype=torch.float32, device=counts.device).reshape(1)

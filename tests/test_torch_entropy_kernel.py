@@ -12,6 +12,8 @@ the kernel) is held to the reference's ``population_histogram`` on
 Tolerances: 0/1 weights bit-identical; fractional weights rtol = atol =
 1e-5 (float32 sums in another order); entropies 1e-6 absolute.
 """
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -139,6 +141,66 @@ def test_gathered_histogram_takes_int64_rows_on_the_cpu():
     np.testing.assert_array_equal(np_(population_histogram_rows(t(codes), t(rows), 8)),
                                   np_(population_histogram_rows(t(codes), t(rows.astype(np.int64)),
                                                                 8)))
+
+
+def _strided(x):
+    """``x`` as a view that is not contiguous, holding the same values."""
+    return torch.stack([x, x], dim=-1)[..., 0]
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=requires_cuda)])
+def test_gathered_histogram_takes_int64_and_strided_inputs(device):
+    """The op takes on the card what its plain version takes on the CPU:
+    int64 rows, and codes and rows that are strided views."""
+    if device == "cuda":
+        skip_without_cuda()
+    codes, rows = _gathered_case(6, 10, 25, 4, 8, None, seed=8)
+    c, r = t(codes, device=device), t(rows, device=device)
+    want = population_histogram_rows(c, r, 8)
+    for c_in, r_in in ((c, r.long()), (_strided(c), r), (c, _strided(r)),
+                       (_strided(c), _strided(r.long()))):
+        assert torch.equal(population_histogram_rows(c_in, r_in, 8), want)
+
+
+def test_gathered_histogram_raises_on_a_row_outside_the_table_on_the_cpu():
+    codes, rows = _gathered_case(3, 5, 25, 4, 8, None, seed=3)
+    rows[1, 2] = 25
+    with pytest.raises(IndexError):
+        population_histogram_rows(t(codes), t(rows), 8)
+
+
+# run in a process of its own: the kernel's trap leaves that process's CUDA
+# context unusable
+_BAD_ROW_SCRIPT = """
+import torch
+from repro_torch.kernels.entropy.ops import population_histogram_rows
+codes = torch.zeros((10, 3), dtype=torch.int32, device="cuda")
+rows = torch.tensor([[0, 10]], dtype=torch.int32, device="cuda")
+try:
+    population_histogram_rows(codes, rows, 4)
+    torch.cuda.synchronize()
+except RuntimeError:
+    print("raised")
+try:
+    torch.ones(1, device="cuda").sum().item()
+except RuntimeError:
+    print("context unusable")
+"""
+
+
+@requires_cuda
+def test_cuda_gathered_histogram_traps_on_a_row_outside_the_table():
+    """The documented behaviour of a bad index on the card: an error at the
+    next synchronise, and a CUDA context that stays unusable."""
+    skip_without_cuda()
+    import os
+    import subprocess
+    import sys
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = {**os.environ, "PYTHONPATH": src + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    out = subprocess.run([sys.executable, "-c", _BAD_ROW_SCRIPT], env=env, capture_output=True,
+                         text=True, timeout=600).stdout.split()
+    assert "raised" in out and "unusable" in out
 
 
 @pytest.mark.parametrize("bins", [1, 8, 256, 5000, 20000])

@@ -92,6 +92,20 @@ def test_leading_axes_flatten_and_restore_in_place():
     np.testing.assert_allclose(np_(f_t), np.asarray(f_r), atol=1e-6)
 
 
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=requires_cuda)])
+def test_fused_op_takes_strided_inputs(device):
+    """Codes, a bool delta and a column mask given as strided views: the same
+    counts and fitness as from contiguous inputs, on the card as on the CPU."""
+    if device == "cuda":
+        skip_without_cuda()
+    counts, old, new, applied, cm, f_ref = _port(_case((7,), 5, 16, seed=3), device)
+    c_1, f_1 = fused_delta_fitness(counts.clone(), old, new, applied, cm, f_ref)
+    strided = [torch.stack([x, x], dim=-1)[..., 0] for x in (old, new, applied, cm)]
+    assert not any(x.is_contiguous() for x in strided)
+    c_2, f_2 = fused_delta_fitness(counts.clone(), *strided, f_ref)
+    assert torch.equal(c_1, c_2) and torch.equal(f_1, f_2)
+
+
 @requires_cuda
 @pytest.mark.parametrize("P,M,B,code_max", FUSED_CASES + [(100, 23, 256, None)])
 def test_cuda_fused_matches_plain(P, M, B, code_max):
@@ -137,9 +151,9 @@ def _aligned_copy(x, like):
     return out.copy_(x)
 
 
-# (label, P, M, B, fractional, view): fractional counts and delta; a slab over
-# 48 KB (the shared-memory opt-in) and over 227 KB (read from device memory);
-# slabs of a size, or at an address, no multiple of 16 bytes
+# (label, P, M, B, fractional, view): fractional counts and delta; slabs of
+# 100 and 600 columns, more than a CTA's 32 warps; slabs of a size, or at an
+# address, no multiple of 16 bytes (scalar loads)
 CUDA_EDGES = [
     ("fractional", 50, 23, 256, True, None),
     ("slab over 48 KB", 6, 100, 256, False, None),
