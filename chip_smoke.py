@@ -32,8 +32,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    search under ``torch.cuda.set_sync_debug_mode("error")``: no operation in
    the generation loop may wait for the host.
 5. The main path: ``execute(plan("gen_dst"), ...)`` on D1 at full scale with
-   the paper's defaults.  Both kernels' launch counters are zeroed just before
-   and read just after, and must have risen.  The reported DST fitness must
+   the paper's defaults, both AutoML passes on the batched default backend.
+   Both kernels' launch counters are zeroed just before and read just after,
+   and must have risen.  The reported DST fitness must
    match a plain recomputation within 1e-6, and the test accuracy must be a
    finite number in [0, 1].
 6. Where the time goes: the Gen-DST phase alone and the whole ``execute``
@@ -64,6 +65,17 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``torch.cuda.set_sync_debug_mode("error")`` (no step may wait for the
    host); and the serving invariant (decode step t = forward at t within
    1e-2) at full width and 12 layers in float32.
+10. The AutoML backends on the card: rung 0 of D1's sub-AutoML (the 24
+   sampled specs on phase 5's subset) through the batched and the loop
+   backend, every trial's validation accuracy within 2/N_val of the other's
+   (and how many differ at all); the batched rung under
+   ``torch.cuda.set_sync_debug_mode("error")`` from its inputs on the card to
+   its one copy back; a hetero-shape ``eval_rung_cohorts`` and a mixed-step
+   ``eval_trial_megabatch`` against each cohort run solo, within the same
+   tolerance; a ``time_budget_s`` run that stops between sub-batches; then
+   ``execute`` timed with each backend (loop, batched, batched, loop), and
+   the sub-AutoML phase of each under ``torch.profiler``: its device
+   operations per rung and its device-busy share.
 
 Then it prints the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and,
 last, ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -233,10 +245,11 @@ def kernel_device_ms(torch, fn, kernel: str, calls: int = 50):
     return sum(dev_us(e) for e in events) / count / 1e3 if count else None
 
 
-def profile_share(torch, run) -> list:
+def profile_share(torch, run, top: int = 8) -> tuple:
     """Run ``run()`` under torch.profiler; print the device-busy share of the
-    wall time and the kernels that took the most device time.  Returns the
-    profiler's device events (kernels and copies, summed by name)."""
+    wall time and the ``top`` kernels that took the most device time.  Returns the
+    profiler's device events (kernels and copies, summed by name) and the
+    busy share (None where no device time was recorded)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -249,12 +262,12 @@ def profile_share(torch, run) -> list:
     busy_us = sum(dev_us(e) for e in events)
     if busy_us <= 0:
         print("  profile: no device time recorded (device busy share not measured)")
-        return events
+        return events, None
     print(f"  profile: wall {wall:.3f} s (profiler on), device busy {busy_us / 1e6:.4f} s, "
           f"busy share {busy_us / 1e6 / wall:.4f}")
-    for e in sorted(events, key=lambda e: -dev_us(e))[:8]:
+    for e in sorted(events, key=lambda e: -dev_us(e))[:top]:
         print(f"    {dev_us(e) / 1e3:10.3f} ms  {e.count:7d} x  {e.key[:90]}")
-    return events
+    return events, busy_us / 1e6 / wall
 
 
 def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float) -> tuple[float, str]:
@@ -436,6 +449,9 @@ SERVE_ARGV = ["--arch", "zamba2-2.7b", "--preset", "full", "--batch", str(SERVE_
               "--seed", "0"]
 SERVE_CARD_CPU_TOL = 1e-4      # float32 logits, card (kernels) vs CPU (plain versions)
 SERVE_INVARIANT_TOL = 1e-2     # decode step t vs forward at t (tests/test_serve.py)
+# per-trial validation accuracy, batched against loop and merged against
+# solo: within this many validation rows (tests/test_torch_automl.py)
+AUTOML_TOL_ROWS = 2
 
 
 def phase9_serving(torch, dev, K) -> dict:
@@ -550,6 +566,165 @@ def phase9_serving(torch, dev, K) -> dict:
     print(f"serving invariant (zamba2 width, 12 layers, float32, S={S}, prompt {prompt}): "
           f"decode = forward within {SERVE_INVARIANT_TOL}, max_abs_err {err:.3e}")
     return launches
+
+
+def phase10_automl_backends(torch, dev, X_tr, y_tr, X_te, y_te, result) -> None:
+    """The AutoML backends on the card: rung 0 of D1's sub-AutoML through the
+    batched and the loop backend (every trial within 2/N_val), the batched
+    rung under sync-debug "error", a hetero-shape and a mixed-step merge
+    against solo runs, a time budget that stops between sub-batches, and
+    ``execute`` timed with each backend (loop, batched, batched, loop) with
+    the sub-AutoML phase profiled for each."""
+    from repro_torch.automl import batched as B
+    from repro_torch.automl.engine import (
+        AutoMLConfig, _eval_rung_loop, automl_fit, search_cohort, search_eval_rung,
+        search_init, search_result, search_trial_cohort,
+    )
+    from repro_torch.core.plan import execute, plan
+    from repro_torch.core.substrat import build_subset
+    from repro_torch.device import make_generator
+    import dataclasses
+    import numpy as np
+
+    def worst(label, got, ref, n_val):
+        """Largest per-trial accuracy difference of two rung outputs, and how
+        many trials differ; fails past 2/N_val or on unequal positions."""
+        (scored_g, pos_g), (scored_r, pos_r) = got, ref
+        if pos_g != pos_r or [s[0] for s in scored_g] != [s[0] for s in scored_r]:
+            fail(f"AutoML {label}: trials or positions differ ({pos_g} vs {pos_r})")
+        diffs = [abs(a[1] - b[1]) for a, b in zip(scored_g, scored_r)]
+        if not max(diffs) <= AUTOML_TOL_ROWS / n_val + 1e-9:
+            fail(f"AutoML {label}: a trial's accuracy differs by {max(diffs)} > "
+                 f"{AUTOML_TOL_ROWS}/{n_val}")
+        return max(diffs), sum(d > 0 for d in diffs)
+
+    # the sub-AutoML's input exactly as execute(seed=0) built it in phase 5
+    X_sub, y_sub = build_subset(X_tr, y_tr, result.row_idx, result.col_idx,
+                                make_generator(0 ^ 0x5AB5))
+    st = search_init(X_sub, y_sub, config=AutoMLConfig(), device=dev)
+    cohort, tids, epochs, _ = search_cohort(st)
+    n_val, d, c = len(st.ctx["y_val"]), st.ctx["X_tr"].shape[1], st.ctx["n_classes"]
+    print(f"AutoML backends: D1's sub-AutoML input {X_sub.shape}, train {st.ctx['X_tr'].shape[0]} "
+          f"rows (class counts {np.bincount(st.ctx['y_tr']).tolist()}), N_val {n_val}, "
+          f"{len(cohort)} trials at rung 0 ({epochs} epochs)")
+
+    # (a) rung 0, batched against loop, on the card
+    t0 = time.perf_counter()
+    bat = B.eval_rung_batched(cohort, tids, 0, epochs, st.ctx, st.out_of_budget, True)
+    t_bat = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loop = _eval_rung_loop(cohort, tids, 0, epochs, st.ctx, st.out_of_budget, True)
+    t_loop = time.perf_counter() - t0
+    err, n_diff = worst("rung 0 batched vs loop", bat, loop, n_val)
+    print(f"  (a) rung 0: batched {t_bat:.4f} s, loop {t_loop:.4f} s (first calls); "
+          f"{n_diff} of {len(cohort)} trials differ at all, largest {err:.6f} "
+          f"(limit {AUTOML_TOL_ROWS}/{n_val})")
+
+    # (b) the same rung from its inputs on the card to its one sync: no
+    # operation may wait for the host
+    trials, variants, subbatches, common = B._rung_inputs(cohort, tids, 0, epochs, st.ctx)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        evaluated = B._run_subbatches(subbatches, common, c, d, epochs)
+    except RuntimeError as exc:
+        fail(f"the batched rung synchronised with the host: {exc}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    again = B._unpack_results(evaluated, trials, variants, False)
+    same = all(again[i][0] == bat[0][i][1] for i in range(len(cohort)))
+    print(f"  (b) batched rung: no host sync before its one copy back; {len(subbatches)} "
+          f"sub-batches; accuracies equal to (a)'s: {same}")
+
+    # (c) a hetero-shape merge and a mixed-step megabatch against solo runs:
+    # job B takes 601 rows of all 22 features, another seed
+    stB = search_init(X_tr[:601], y_tr[:601], config=AutoMLConfig(seed=1), device=dev)
+    nB = len(stB.ctx["y_val"])
+    cohortB, tidsB, _, _ = search_cohort(stB)
+    soloB = B.eval_rung_batched(cohortB, tidsB, 0, epochs, stB.ctx, stB.out_of_budget, False)
+    mA, mB = B.eval_rung_cohorts([search_trial_cohort(st), search_trial_cohort(stB)])
+    ea, _ = worst("hetero merge, job A", mA, bat, n_val)
+    eb, _ = worst("hetero merge, job B", mB, soloB, nB)
+    search_eval_rung(st)                               # job A one rung ahead
+    tcA, tcB = search_trial_cohort(st), search_trial_cohort(stB)
+    soloA1 = B.eval_rung_batched(tcA.specs, tcA.tids, tcA.rung_i, tcA.epochs, st.ctx,
+                                 st.out_of_budget, False)
+    gA, gB = B.eval_trial_megabatch([tcA, tcB])
+    ga, _ = worst("megabatch, job A", gA, soloA1, n_val)
+    gb, _ = worst("megabatch, job B", gB, soloB, nB)
+    print(f"  (c) hetero merge ({st.ctx['X_tr'].shape} with {stB.ctx['X_tr'].shape}): largest "
+          f"difference from solo {max(ea, eb):.6f}; megabatch (job A at rung 1, "
+          f"{tcA.epochs} steps, with job B at rung 0, {tcB.epochs}): {max(ga, gb):.6f}")
+
+    # (d) a time budget spent at once stops rung 0 after its first sub-batch
+    stD = search_init(X_sub, y_sub, config=AutoMLConfig(time_budget_s=1e-9), device=dev)
+    search_eval_rung(stD)
+    resD = search_result(stD)
+    if not (stD.stopped and 1 <= resD.n_trials == len(subbatches[0][0]) < len(cohort)):
+        fail(f"time budget: {resD.n_trials} trials scored, stopped {stD.stopped}; expected "
+             f"the first sub-batch's {len(subbatches[0][0])} of {len(cohort)}")
+    print(f"  (d) time budget: stopped after the first sub-batch, {resD.n_trials} of "
+          f"{len(cohort)} trials scored, winner {resD.spec.family}")
+
+    # (e) execute with each backend, loop, batched, batched, loop (after one
+    # unrecorded run: phases 7-9 ran in between), then the sub-AutoML of each
+    # rung by rung, and under the profiler
+    execute(plan("gen_dst"), X_tr, y_tr, seed=0, device=dev)
+    for backend in ("loop", "batched", "batched", "loop"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = execute(plan("gen_dst", backend=backend), X_tr, y_tr, X_test=X_te, y_test=y_te,
+                    seed=0, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        print(f"  (e) execute, backend {backend}: {wall:.4f} s; " + ", ".join(
+            f"{k} {v:.4f}" for k, v in r.times.items())
+            + f"; final {r.final.spec.family} test_acc {r.final.test_acc:.4f}  [{smi_line()}]")
+    # Adam steps issued by the host: both backends call models.adam_train,
+    # the batched module through its own name; counted here only
+    from repro_torch.automl import models as M
+    issued = [0]
+
+    def counting_adam(loss_fn, params0, lr, epochs, n_steps=None):
+        fixed = n_steps is None or isinstance(n_steps, torch.Tensor)
+        issued[0] += epochs if fixed else min(epochs, int(n_steps))
+        return adam_train(loss_fn, params0, lr, epochs, n_steps)
+    adam_train = M.adam_train
+    M.adam_train = B.adam_train = counting_adam
+    try:
+        for backend in ("loop", "batched", "batched", "loop"):
+            stR = search_init(X_sub, y_sub, config=AutoMLConfig(backend=backend), device=dev)
+            parts = []
+            while not stR.done:
+                n_trials, before = len(stR.alive_ids), issued[0]
+                search_eval_rung(stR)
+                parts.append(f"rung {stR.rung_i - 1}: {n_trials} trials, "
+                             f"{issued[0] - before} Adam steps, {stR.rung_times[-1]:.4f} s")
+            print(f"  sub-AutoML by rung, backend {backend}: " + "; ".join(parts)
+                  + f"; winner {search_result(stR).spec.family}")
+    finally:
+        M.adam_train = B.adam_train = adam_train
+    for backend in ("loop", "batched"):
+        print(f"  profiled sub-AutoML, backend {backend}, whole phase:")
+        profile_share(torch, lambda: automl_fit(
+            X_sub, y_sub, config=AutoMLConfig(backend=backend), device=dev))
+        print(f"  rung by rung, backend {backend}:")
+        stP = search_init(X_sub, y_sub, config=AutoMLConfig(backend=backend), device=dev)
+        per_rung = []
+        while not stP.done:
+            events, _ = profile_share(torch, lambda: search_eval_rung(stP), top=0)
+            per_rung.append(sum(e.count for e in events))
+            print(f"    rung {stP.rung_i - 1}: {per_rung[-1]} device operations")
+        print(f"  sub-AutoML {backend}: {sum(per_rung)} device operations in {len(per_rung)} "
+              f"rungs, {sum(per_rung) / len(per_rung):.1f} per rung")
+    ft = plan("gen_dst").ft_automl
+    for backend in ("loop", "batched"):
+        print(f"  profiled fine-tune ({result.intermediate.spec.family}, {len(y_tr)} rows), "
+              f"backend {backend}:")
+        events, _ = profile_share(torch, lambda: automl_fit(
+            X_tr, y_tr, config=dataclasses.replace(ft, backend=backend),
+            restrict_family=result.intermediate.spec.family, device=dev))
+        print(f"  fine-tune {backend}: {sum(e.count for e in events)} device operations")
 
 
 def main() -> None:
@@ -856,6 +1031,9 @@ def main() -> None:
     for k, v in result.times.items():
         print(f"  {k} {v:.4f}")
     print(f"  launches {launches}")
+    if not result.intermediate.backend == result.final.backend == "batched":
+        fail(f"the main path ran the {result.intermediate.backend}/{result.final.backend} "
+             f"AutoML backends, not the batched default")
     print(f"  intermediate {result.intermediate.spec.family} val_acc "
           f"{result.intermediate.val_acc:.4f}; final {result.final.spec} "
           f"val_acc {result.final.val_acc:.4f} test_acc {result.final.test_acc}")
@@ -880,7 +1058,7 @@ def main() -> None:
 
     # --- 6. where the main path's time goes (a second run, profiled) ---------
     print("profiled main path (Gen-DST phase alone, then the whole execute):")
-    events = profile_share(torch, lambda: gen_dst(make_generator(0, dev), coded, device=dev))
+    events, _ = profile_share(torch, lambda: gen_dst(make_generator(0, dev), coded, device=dev))
     # device operations (kernels and copies) per generation, the initial
     # population counted as one; B1's and B2's share of the device time
     ops = sum(e.count for e in events)
@@ -900,6 +1078,9 @@ def main() -> None:
     for entry in kernels:
         if entry["launches"] is None:
             entry["launches"] = launches[entry["name"]]
+
+    # --- 10. the AutoML backends on the card -----------------------------------
+    phase10_automl_backends(torch, dev, X_tr, y_tr, X_te, y_te, result)
 
     print(json.dumps({"kernels": kernels}))
     print(smi_line())

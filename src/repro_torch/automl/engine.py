@@ -13,9 +13,12 @@ What differs:
 * ``_trial_generator`` replaces ``_trial_key``: a ``torch.Generator`` seeded
   from ``(seed, trial_id, rung)``, so a trial's draws do not depend on
   evaluation order.  Only the MLP init draws from it.
-* Only the ``"loop"`` backend (one ``train_model`` per trial) is ported; it
-  is the default until the batched cohort backend lands (ROADMAP.md).  The
-  reference holds both backends to the same winner (DESIGN.md §10.4).
+* Two rung evaluators share one rung loop, as in the reference
+  (``AutoMLConfig.backend``, resolved through a registry):
+  ``"batched"`` (default) advances a whole rung cohort at once in
+  ``automl/batched.py`` (DESIGN.md §10.3); ``"loop"`` trains one trial at a
+  time (``_eval_rung_loop``).  Both draw a trial's MLP init from the same
+  ``_trial_generator``, so the same seed gives the same winner.
 * ``init_provider`` is a seam for the tests: ``fn(spec, trial_id, rung,
   d, n_classes) -> params or None`` replaces a trial's drawn initial params.
 
@@ -26,7 +29,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import time
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -38,6 +41,8 @@ __all__ = [
     "AutoMLConfig", "AutoMLResult", "automl_fit", "PipelineSpec",
     "apply_pipeline", "sh_promote", "SearchState", "search_init",
     "search_cohort", "search_record", "search_result", "search_eval_rung",
+    "TrialCohort", "search_trial_cohort", "register_backend", "get_backend",
+    "available_backends", "BACKENDS",
 ]
 
 PREPROCS = ("none", "standardize", "minmax")
@@ -56,7 +61,7 @@ class PipelineSpec:
 @dataclasses.dataclass
 class AutoMLResult:
     spec: PipelineSpec
-    params: Any                # dict of tensors on the run's device
+    params: Any                # dict of tensors on the run's device (loop shapes)
     val_acc: float
     test_acc: Optional[float]
     time_s: float
@@ -65,7 +70,7 @@ class AutoMLResult:
     pre_stats: Dict[str, np.ndarray]
     trials: List[tuple]        # (spec, val_acc), cohort order per rung
     rung_times: List[float] = dataclasses.field(default_factory=list)
-    backend: str = "loop"
+    backend: str = "batched"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,7 +82,7 @@ class AutoMLConfig:
     keep_frac: float = 0.34
     val_frac: float = 0.2
     seed: int = 0
-    backend: str = "loop"      # the only backend ported so far
+    backend: str = "batched"   # "batched" (§10.3) | "loop" (one trial at a time)
 
 
 def _fit_preproc(name: str, X: np.ndarray) -> Dict[str, np.ndarray]:
@@ -191,6 +196,53 @@ def _eval_rung_loop(cohort, tids, rung_i, epochs, ctx, out_of_budget, collect_pa
     return scored, list(range(len(scored)))
 
 
+# ---------------------------------------------------------------------------
+# SearchBackend registry: "how one rung of trials is evaluated"
+# ---------------------------------------------------------------------------
+
+# A backend is a rung evaluator:
+#   (cohort, tids, rung_i, epochs, ctx, out_of_budget, collect_params)
+#     -> (scored, positions)
+# where ``scored[i]`` is ``(spec, val_acc, params, feat_idx, pre_stats)`` and
+# ``positions[i]`` its index into ``cohort`` (DESIGN.md §12.2).
+BACKENDS: Dict[str, Any] = {}
+
+
+def register_backend(name: str, eval_rung, *, overwrite: bool = False):
+    """Register a rung evaluator under ``name``."""
+    if not overwrite and name in BACKENDS:
+        raise ValueError(f"backend {name!r} already registered "
+                         f"(pass overwrite=True to replace)")
+    BACKENDS[name] = eval_rung
+    return eval_rung
+
+
+def available_backends():
+    return tuple(sorted(BACKENDS))
+
+
+def get_backend(name: str):
+    """Look up a registered backend; unknown names list what exists."""
+    try:
+        return BACKENDS[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown AutoML backend {name!r}; available backends: "
+            f"{', '.join(available_backends())}") from None
+
+
+def _eval_rung_batched_lazy(cohort, tids, rung_i, epochs, ctx, out_of_budget,
+                            collect_params=True):
+    # deferred import: batched.py imports engine helpers (no cycle at load)
+    from .batched import eval_rung_batched
+    return eval_rung_batched(cohort, tids, rung_i, epochs, ctx, out_of_budget,
+                             collect_params)
+
+
+register_backend("loop", _eval_rung_loop)
+register_backend("batched", _eval_rung_batched_lazy)
+
+
 @dataclasses.dataclass
 class SearchState:
     """Resumable state of one successive-halving search (DESIGN.md §11.3):
@@ -208,6 +260,10 @@ class SearchState:
     rung_times: List[float] = dataclasses.field(default_factory=list)
     n_done: int = 0
     stopped: bool = False
+    # per-trial rung cursors (DESIGN.md §13.2): ``trial_rung[tid]`` is the
+    # rung the trial trains next; survivors advance, culled trials keep
+    # their last cursor (they have left the megabatch)
+    trial_rung: Dict[int, int] = dataclasses.field(default_factory=dict)
 
     @property
     def done(self) -> bool:
@@ -230,9 +286,7 @@ def search_init(
     init_provider: Optional[Callable] = None,
 ) -> SearchState:
     """Build the evaluation context and sample the initial population."""
-    if config.backend != "loop":
-        raise ValueError(f"unknown AutoML backend {config.backend!r}; the port has only "
-                         f"'loop' so far")
+    get_backend(config.backend)   # unknown names raise, listing the registry
     dev = resolve_device(device)
     t_start = time.perf_counter()
     X = np.asarray(X, dtype=np.float32)
@@ -257,11 +311,15 @@ def search_init(
         "y_tr_t": torch.as_tensor(y_tr, dtype=torch.int64, device=dev),
         "y_val_t": torch.as_tensor(y_val, dtype=torch.int64, device=dev),
         "n_classes": len(classes), "seed": config.seed, "device": dev,
-        "pipe_cache": {},      # (preproc, frac) -> projected data on the device
+        "budget_active": config.time_budget_s is not None,
+        "pipe_cache": {},      # loop backend: (preproc, frac) -> projected data
+        "variant_cache": {},   # batched backend: (preproc, frac) -> full-width variant
         "init_provider": init_provider,
     }
+    alive_ids = list(range(len(specs)))
     return SearchState(config=config, classes=classes, ctx=ctx, specs=specs,
-                       alive_ids=list(range(len(specs))), t_start=t_start)
+                       alive_ids=alive_ids, t_start=t_start,
+                       trial_rung={i: 0 for i in alive_ids})
 
 
 def search_cohort(state: SearchState):
@@ -271,6 +329,51 @@ def search_cohort(state: SearchState):
     collect = (state.rung_i == len(config.rungs) - 1
                or config.time_budget_s is not None)
     return cohort, list(state.alive_ids), int(config.rungs[state.rung_i]), collect
+
+
+class TrialCohort(NamedTuple):
+    """One job's current rung as a uniform, mergeable unit of trial work
+    (DESIGN.md §12.3, §13): same-shaped cohorts merge exactly,
+    differently-shaped ones through maximal-shape padding
+    (``batched.eval_rung_cohorts``), cohorts at different rungs through
+    per-trial step masks (``batched.eval_trial_megabatch``).
+
+    ``rungs``/``steps`` carry each trial's rung cursor and epoch budget
+    (from ``SearchState.trial_rung``); the scalar ``rung_i``/``epochs`` are
+    the uniform-rung view."""
+    specs: list            # PipelineSpec per live trial
+    tids: list             # trial ids (generator derivation)
+    rung_i: int
+    epochs: int
+    collect: bool          # params wanted (final rung / budget active)
+    ctx: dict              # the SearchState evaluation context
+    rungs: tuple = ()      # per-trial rung cursors (§13.2)
+    steps: tuple = ()      # per-trial epoch budgets at those cursors
+
+    @property
+    def shape(self):
+        """(N_tr, N_val, d, n_classes) — the merge-compatibility axes."""
+        return (self.ctx["X_tr"].shape[0], self.ctx["X_val"].shape[0],
+                self.ctx["X_tr"].shape[1], self.ctx["n_classes"])
+
+    @property
+    def trial_rungs(self):
+        """Per-trial rungs, defaulting to the uniform ``rung_i``."""
+        return self.rungs if self.rungs else (self.rung_i,) * len(self.specs)
+
+    @property
+    def trial_steps(self):
+        """Per-trial step budgets, defaulting to the uniform ``epochs``."""
+        return self.steps if self.steps else (self.epochs,) * len(self.specs)
+
+
+def search_trial_cohort(state: SearchState) -> TrialCohort:
+    """The current rung of ``state`` as a ``TrialCohort``."""
+    cohort, tids, epochs, collect = search_cohort(state)
+    rungs = tuple(state.trial_rung.get(t, state.rung_i) for t in tids)
+    steps = tuple(int(state.config.rungs[r]) for r in rungs)
+    return TrialCohort(cohort, tids, state.rung_i, epochs, collect, state.ctx,
+                       rungs, steps)
 
 
 def search_record(state: SearchState, scored, positions, rung_time: float) -> None:
@@ -287,6 +390,8 @@ def search_record(state: SearchState, scored, positions, rung_time: float) -> No
         surv.sort(key=lambda i: (-scored[i][1], i))
     state.alive_ids = [state.alive_ids[positions[i]] for i in surv]
     state.rung_i += 1
+    for tid in state.alive_ids:        # survivors' cursors advance
+        state.trial_rung[tid] = state.rung_i
     if state.out_of_budget():
         state.stopped = True
 
@@ -297,6 +402,8 @@ def search_result(state: SearchState, X_test: Optional[np.ndarray] = None,
     live = state.live
     best_i = int(np.argmax([v for (_s, v, *_r) in live]))  # ties -> lower index
     best_spec, best_vacc, best_params, best_fidx, best_stats = live[best_i]
+    if callable(best_params):   # the batched backend unpads params lazily
+        best_params = best_params()
     test_acc = None
     if X_test is not None:
         dev = state.ctx["device"]
@@ -314,11 +421,13 @@ def search_result(state: SearchState, X_test: Optional[np.ndarray] = None,
 
 
 def search_eval_rung(state: SearchState):
-    """Evaluate the current rung in-process and record it."""
+    """Evaluate the current rung in-process, through the configured
+    backend, and record it."""
+    _eval_rung = get_backend(state.config.backend)
     cohort, tids, epochs, collect = search_cohort(state)
     t_rung = time.perf_counter()
-    scored, positions = _eval_rung_loop(cohort, tids, state.rung_i, epochs, state.ctx,
-                                  state.out_of_budget, collect)
+    scored, positions = _eval_rung(cohort, tids, state.rung_i, epochs, state.ctx,
+                                   state.out_of_budget, collect)
     search_record(state, scored, positions, time.perf_counter() - t_rung)
 
 

@@ -6,6 +6,20 @@ features and int64 labels; params are dicts of tensors (``{"w", "b"}``,
 ``{"layers": [{"w", "b"}, ...]}``, ...), the same trees as the reference.
 Gradients come from ``torch.autograd`` in place of ``jax.grad``.
 
+Every family function also takes a stack of ``T`` trials: params, features
+and labels with a leading trial axis (``(T, N, d)``, ``(T, N)``), a per-trial
+HP as a ``(T,)`` tensor, a loss or accuracy per trial as ``(T,)``.  Matmuls
+broadcast to batched products (``torch.bmm``; trial by trial above
+``STACKED_MATMUL_MAX_ROWS`` rows), so the loop backend
+(``engine._eval_rung_loop``, one trial) and the batched cohort backend
+(``batched.py``, a sub-batch) run the same definitions, as the reference's
+``jax.vmap`` runs the same functions in both.
+
+``ModelFamily.shape_hps`` names the HPs that change the param shapes (MLP
+``depth`` and ``width``): the batched backend sub-batches on those.
+``init_keyless`` marks the zero-init families, whose cohort init is one
+broadcast.
+
 Training is full-batch Adam (``adam_train``), a Python loop over steps whose
 tensors stay on the device.  Float32 matmuls run in full float32: the port
 turns TF32 off when it resolves a CUDA device (``device.py``).
@@ -18,7 +32,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["FAMILIES", "ModelFamily", "adam_train", "train_model",
-           "predict_model", "accuracy"]
+           "predict_model", "accuracy", "masked_loss", "masked_fit",
+           "masked_accuracy", "CLASS_MASK_NEG"]
 
 
 class ModelFamily(NamedTuple):
@@ -28,6 +43,45 @@ class ModelFamily(NamedTuple):
     fit_closed: Optional[Callable[..., Any]]
     predict: Callable[..., torch.Tensor]
     hp_grid: Dict[str, tuple]
+    # HPs that change param shapes or tree structure; the batched engine
+    # sub-batches on these (DESIGN.md §10.3)
+    shape_hps: tuple = ()
+    # init ignores the generator (zero init): the batched engine broadcasts
+    # one init across the sub-batch
+    init_keyless: bool = False
+
+
+def _per_trial(v, ndim: int):
+    """A per-trial HP shaped to broadcast against a tensor of ``ndim`` dims
+    with a leading trial axis: a ``(T,)`` tensor becomes ``(T, 1, ..., 1)``;
+    a Python float stays as it is."""
+    if isinstance(v, torch.Tensor) and v.ndim:
+        return v.view((-1,) + (1,) * (ndim - 1))
+    return v
+
+
+# Above this many rows a stack of trials multiplies trial by trial: the
+# weight gradient of a product is a reduction over the rows, and cuBLAS
+# splits that long K for a 2-D product but not for a strided-batched one
+# (2.7 ms per 128 x 128 weight gradient at 83k rows on an H100).  Below it
+# the stack is bound by launches, and one batched product wins.
+STACKED_MATMUL_MAX_ROWS = 2048
+
+
+def _matmul(X, w):
+    """``X @ w``; a stack of trials with more than
+    ``STACKED_MATMUL_MAX_ROWS`` rows takes one 2-D product per trial."""
+    if X.ndim == 3 and X.shape[-2] > STACKED_MATMUL_MAX_ROWS:
+        if X.shape[0] == 1:
+            return (X[0] @ w[0]).unsqueeze(0)
+        return torch.stack([x @ v for x, v in zip(X, w)])
+    return X @ w
+
+
+def _one_hot(y, c):
+    """``(..., N)`` labels -> ``(..., N, c)`` float32 one-hot (a compare with
+    ``arange``: no check of the labels' range, so no host sync on a card)."""
+    return (y.unsqueeze(-1) == torch.arange(c, device=y.device)).to(torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -35,8 +89,16 @@ class ModelFamily(NamedTuple):
 # ---------------------------------------------------------------------------
 
 
+def _nll(logits, y):
+    return -F.log_softmax(logits, dim=-1).gather(-1, y.unsqueeze(-1)).squeeze(-1)
+
+
 def _xent(logits, y):
-    return -F.log_softmax(logits, dim=-1).gather(1, y[:, None]).mean()
+    return _nll(logits, y).mean(-1)
+
+
+def _sq_sum(w):
+    return (w ** 2).sum((-2, -1))
 
 
 def _logreg_init(gen, d, c, hp, device):
@@ -44,12 +106,11 @@ def _logreg_init(gen, d, c, hp, device):
 
 
 def _logreg_loss(params, X, y, c, hp):
-    logits = X @ params["w"] + params["b"]
-    return _xent(logits, y) + hp["l2"] * (params["w"] ** 2).sum()
+    return _xent(_logreg_predict(params, X), y) + hp["l2"] * _sq_sum(params["w"])
 
 
 def _logreg_predict(params, X):
-    return X @ params["w"] + params["b"]
+    return _matmul(X, params["w"]) + params["b"].unsqueeze(-2)
 
 
 def _mlp_init(gen, d, c, hp, device):
@@ -67,27 +128,34 @@ def _mlp_forward(params, X):
     h = X
     layers = params["layers"]
     for i, lyr in enumerate(layers):
-        h = h @ lyr["w"] + lyr["b"]
+        h = _matmul(h, lyr["w"]) + lyr["b"].unsqueeze(-2)
         if i < len(layers) - 1:
+            # ReLU keeps width padding inert: a padded unit is 0 and
+            # relu'(0) = 0, so it gets no gradient (DESIGN.md §10.4)
             h = torch.relu(h)
     return h
 
 
+def _mlp_reg(params):
+    return sum(_sq_sum(lyr["w"]) for lyr in params["layers"])
+
+
 def _mlp_loss(params, X, y, c, hp):
-    reg = sum((lyr["w"] ** 2).sum() for lyr in params["layers"])
-    return _xent(_mlp_forward(params, X), y) + hp["l2"] * reg
+    return _xent(_mlp_forward(params, X), y) + hp["l2"] * _mlp_reg(params)
+
+
+def _hinge(logits, y):
+    """Multi-class hinge margins; the true class's margin is zeroed and kept
+    out of the gradient, as the reference's ``margins.at[arange, y].set(0.0)``
+    does: a mask, not an in-place write on a tensor autograd needs."""
+    margins = (logits - logits.gather(-1, y.unsqueeze(-1)) + 1.0).clamp_min(0.0)
+    own = y.unsqueeze(-1) == torch.arange(logits.shape[-1], device=y.device)
+    return torch.where(own, 0.0, margins).sum(-1)
 
 
 def _svm_loss(params, X, y, c, hp):
-    logits = X @ params["w"] + params["b"]
-    correct = logits.gather(1, y[:, None])
-    margins = torch.clamp_min(logits - correct + 1.0, 0.0)
-    # the true class's margin is zeroed and kept out of the gradient, as the
-    # reference's ``margins.at[arange, y].set(0.0)`` does: a mask, not an
-    # in-place write on a tensor autograd needs
-    own = F.one_hot(y, logits.shape[1]).bool()
-    margins = torch.where(own, 0.0, margins)
-    return margins.sum(1).mean() + hp["l2"] * (params["w"] ** 2).sum()
+    return (_hinge(_logreg_predict(params, X), y).mean(-1)
+            + hp["l2"] * _sq_sum(params["w"]))
 
 
 # ---------------------------------------------------------------------------
@@ -95,49 +163,57 @@ def _svm_loss(params, X, y, c, hp):
 # ---------------------------------------------------------------------------
 
 
-def _gnb_fit(gen, X, y, c, hp):
-    eps = hp["var_smoothing"]
-    onehot = F.one_hot(y, c).to(torch.float32)               # (N, c)
-    cnt = onehot.sum(0)[:, None]                             # (c, 1)
-    mean = (onehot.T @ X) / cnt.clamp_min(1.0)               # (c, d)
-    sq = (onehot.T @ (X ** 2)) / cnt.clamp_min(1.0)
-    var = (sq - mean ** 2).clamp_min(0.0) + eps
-    prior = torch.log((cnt[:, 0] / X.shape[0]).clamp_min(1e-12))
+def _gnb_stats(onehot, X, n_rows, eps):
+    cnt = onehot.sum(-2).unsqueeze(-1)                       # (..., c, 1)
+    mean = (onehot.mT @ X) / cnt.clamp_min(1.0)              # (..., c, d)
+    sq = (onehot.mT @ (X ** 2)) / cnt.clamp_min(1.0)
+    var = (sq - mean ** 2).clamp_min(0.0) + _per_trial(eps, X.ndim)
+    prior = torch.log((cnt[..., 0] / n_rows).clamp_min(1e-12))
     return {"mean": mean, "var": var, "prior": prior}
+
+
+def _gnb_fit(gen, X, y, c, hp):
+    return _gnb_stats(_one_hot(y, c), X, X.shape[-2], hp["var_smoothing"])
 
 
 def _gnb_predict(params, X):
     # log N(x | mu, var) summed over dims + log prior
     mu, var, prior = params["mean"], params["var"], params["prior"]
-    ll = -0.5 * (((X[:, None, :] - mu[None]) ** 2) / var[None]
-                 + torch.log(2 * torch.pi * var)[None]).sum(-1)
-    return ll + prior[None]
+    ll = -0.5 * (((X.unsqueeze(-2) - mu.unsqueeze(-3)) ** 2) / var.unsqueeze(-3)
+                 + torch.log(2 * torch.pi * var).unsqueeze(-3)).sum(-1)
+    return ll + prior.unsqueeze(-2)
+
+
+def _shrunk(cent, overall, shrinkage):
+    return overall + (cent - overall) * (1.0 - _per_trial(shrinkage, cent.ndim))
 
 
 def _centroid_fit(gen, X, y, c, hp):
-    onehot = F.one_hot(y, c).to(torch.float32)
-    cnt = onehot.sum(0)[:, None]
-    cent = (onehot.T @ X) / cnt.clamp_min(1.0)
-    overall = X.mean(0, keepdim=True)
-    return {"cent": overall + (cent - overall) * (1.0 - hp["shrinkage"])}
+    onehot = _one_hot(y, c)
+    cnt = onehot.sum(-2).unsqueeze(-1)
+    cent = (onehot.mT @ X) / cnt.clamp_min(1.0)
+    return {"cent": _shrunk(cent, X.mean(-2, keepdim=True), hp["shrinkage"])}
 
 
 def _centroid_predict(params, X):
-    return -((X[:, None, :] - params["cent"][None]) ** 2).sum(-1)
+    return -((X.unsqueeze(-2) - params["cent"].unsqueeze(-3)) ** 2).sum(-1)
 
 
 FAMILIES: Dict[str, ModelFamily] = {
     "logreg": ModelFamily(
         "logreg", _logreg_init, _logreg_loss, None, _logreg_predict,
         {"lr": (0.3, 0.1, 0.03), "l2": (0.0, 1e-4, 1e-2)},
+        init_keyless=True,
     ),
     "mlp": ModelFamily(
         "mlp", _mlp_init, _mlp_loss, None, _mlp_forward,
         {"lr": (0.01, 0.003, 0.001), "l2": (0.0, 1e-4), "width": (32, 64, 128), "depth": (1, 2)},
+        shape_hps=("depth", "width"),
     ),
     "linear_svm": ModelFamily(
         "linear_svm", _logreg_init, _svm_loss, None, _logreg_predict,
         {"lr": (0.1, 0.03, 0.01), "l2": (1e-4, 1e-2)},
+        init_keyless=True,
     ),
     "gnb": ModelFamily(
         "gnb", None, None, _gnb_fit, _gnb_predict,
@@ -148,6 +224,71 @@ FAMILIES: Dict[str, ModelFamily] = {
         {"shrinkage": (0.0, 0.2, 0.5)},
     ),
 }
+
+
+# ---------------------------------------------------------------------------
+# masked counterparts for heterogeneous-shape cohort merging (DESIGN.md §12.3)
+# ---------------------------------------------------------------------------
+
+# Additive class-mask constant: finite (no inf-inf NaNs) yet large enough
+# that exp(CLASS_MASK_NEG - max_logit) underflows to exactly 0.0 in float32,
+# so a masked class contributes exactly nothing to softmax/hinge/argmax and
+# its logit receives exactly zero gradient.
+CLASS_MASK_NEG = -1e30
+
+
+def _xent_masked(logits, y, w):
+    """Row-weighted cross-entropy: sum(w * nll) / sum(w); padded rows enter
+    as exact ``0.0`` terms of the sum."""
+    return (_nll(logits, y) * w).sum(-1) / w.sum(-1)
+
+
+def masked_loss(family: str, params, X, y, w, cmask, c, hp):
+    """Row/class-masked counterpart of ``FAMILIES[family].loss``.
+
+    ``w`` is a ``(N,)`` 0/1 row-validity weight and ``cmask`` a ``(c,)``
+    additive class mask (0 for real classes, ``CLASS_MASK_NEG`` for
+    padding); with a leading trial axis, one of each per trial."""
+    fam = FAMILIES[family]
+    logits = fam.predict(params, X) + cmask.unsqueeze(-2)
+    if family == "linear_svm":
+        data = (_hinge(logits, y) * w).sum(-1) / w.sum(-1)
+        reg = hp["l2"] * _sq_sum(params["w"])
+    elif family == "mlp":
+        data = _xent_masked(logits, y, w)
+        reg = hp["l2"] * _mlp_reg(params)
+    elif family == "logreg":
+        data = _xent_masked(logits, y, w)
+        reg = hp["l2"] * _sq_sum(params["w"])
+    else:
+        raise ValueError(f"no masked loss for family {family!r}")
+    return data + reg
+
+
+def masked_fit(family: str, X, y, w, cmask, c, hp):
+    """Row/class-masked counterpart of ``FAMILIES[family].fit_closed``:
+    class statistics weight rows by ``w`` and the row count is ``w.sum()``;
+    padded classes get ``CLASS_MASK_NEG`` priors (gnb) or are suppressed at
+    prediction time via ``cmask`` (centroid)."""
+    onehot = _one_hot(y, c) * w.unsqueeze(-1)
+    n_rows = w.sum(-1, keepdim=True)
+    if family == "gnb":
+        params = _gnb_stats(onehot, X, n_rows, hp["var_smoothing"])
+        params["prior"] = params["prior"] + cmask
+        return params
+    if family == "centroid":
+        cnt = onehot.sum(-2).unsqueeze(-1)
+        cent = (onehot.mT @ X) / cnt.clamp_min(1.0)
+        overall = (w.unsqueeze(-1) * X).sum(-2, keepdim=True) / n_rows.unsqueeze(-1)
+        return {"cent": _shrunk(cent, overall, hp["shrinkage"])}
+    raise ValueError(f"no masked closed-form fit for family {family!r}")
+
+
+def masked_accuracy(family: str, params, X, y, w, cmask) -> torch.Tensor:
+    """Row-weighted accuracy with padded classes excluded from the argmax
+    (a tensor: one per trial with a leading trial axis)."""
+    logits = FAMILIES[family].predict(params, X) + cmask.unsqueeze(-2)
+    return ((torch.argmax(logits, dim=-1) == y).to(torch.float32) * w).sum(-1) / w.sum(-1)
 
 
 # ---------------------------------------------------------------------------
@@ -176,32 +317,50 @@ def _rebuild(tree, leaves):
     return go(tree)
 
 
-def adam_train(loss_fn, params0, lr, epochs: int, n_steps: Optional[int] = None):
-    """Full-batch Adam over ``epochs`` steps, the reference's trajectory.
+def adam_train(loss_fn, params0, lr, epochs: int, n_steps=None):
+    """Full-batch Adam over ``epochs`` steps, the one trajectory both engine
+    backends run (the reference's ``models.py:270-310``, op for op).
 
-    ``loss_fn(params) -> scalar``.  The update is the reference's op for op
-    (``models.py:292-306``); its bias corrections ``1 - 0.9**t`` and
-    ``1 - 0.999**t`` are computed in float32 tensors, as JAX computes them,
-    not in Python doubles.  ``n_steps`` is the per-trial step mask of
-    continuous rung batching: steps ``t >= n_steps`` leave the params and
-    moments unchanged, so the result equals an ``epochs=n_steps`` run."""
+    ``loss_fn(params)`` returns a scalar, or one loss per trial for a stack
+    of trials: the sum is differentiated, and since the trials' params are
+    disjoint each trial gets exactly its own loss's gradient.  ``lr`` is a
+    float or a per-trial ``(T,)`` tensor, broadcast over each leaf's
+    trailing dims.  The bias corrections ``1 - 0.9**t`` and ``1 - 0.999**t``
+    are float32 tensors, as JAX computes them, not Python doubles.
+
+    ``n_steps`` is the step mask of continuous rung batching (DESIGN.md
+    §13.1): an int truncates the run; a per-trial ``(T,)`` tensor keeps all
+    ``epochs`` steps and, from step ``n_steps[i]`` on, selects trial *i*'s
+    previous ``(params, m, v)`` with ``torch.where``, so each trial equals
+    its own ``epochs=n_steps[i]`` run.  Nothing here waits for the host."""
     flat = [p.detach().clone() for p in _leaves(params0)]
     dev = flat[0].device if flat else None
     m = [torch.zeros_like(x) for x in flat]
     v = [torch.zeros_like(x) for x in flat]
-    steps = epochs if n_steps is None else min(epochs, int(n_steps))
+    masked = isinstance(n_steps, torch.Tensor)
+    steps = epochs if n_steps is None or masked else min(epochs, int(n_steps))
     t = torch.arange(1, steps + 1, dtype=torch.float32, device=dev)
-    bc1 = 1 - torch.pow(torch.tensor(0.9, dtype=torch.float32, device=dev), t)
-    bc2 = 1 - torch.pow(torch.tensor(0.999, dtype=torch.float32, device=dev), t)
+    bc1 = 1 - torch.pow(torch.full((), 0.9, dtype=torch.float32, device=dev), t)
+    bc2 = 1 - torch.pow(torch.full((), 0.999, dtype=torch.float32, device=dev), t)
+    lrs = [_per_trial(lr, x.ndim) for x in flat]
+    if masked:
+        active = torch.arange(steps, device=dev)[:, None] < n_steps[None, :]   # (steps, T)
     for i in range(steps):
         leaves = [x.requires_grad_(True) for x in flat]
         loss = loss_fn(_rebuild(params0, leaves))
-        grads = torch.autograd.grad(loss, leaves)
+        grads = torch.autograd.grad(loss.sum() if loss.ndim else loss, leaves)
         with torch.no_grad():
-            m = [0.9 * mi + 0.1 * gi for mi, gi in zip(m, grads)]
-            v = [0.999 * vi + 0.001 * gi ** 2 for vi, gi in zip(v, grads)]
-            flat = [fi - lr * (mi / bc1[i]) / (torch.sqrt(vi / bc2[i]) + 1e-8)
-                    for fi, mi, vi in zip(flat, m, v)]
+            m_n = [0.9 * mi + 0.1 * gi for mi, gi in zip(m, grads)]
+            v_n = [0.999 * vi + 0.001 * gi ** 2 for vi, gi in zip(v, grads)]
+            flat_n = [fi - li * (mi / bc1[i]) / (torch.sqrt(vi / bc2[i]) + 1e-8)
+                      for fi, li, mi, vi in zip(flat, lrs, m_n, v_n)]
+            if masked:
+                def sel(new, old):
+                    return [torch.where(_per_trial(active[i], o.ndim), a, o)
+                            for a, o in zip(new, old)]
+                flat, m, v = sel(flat_n, flat), sel(m_n, m), sel(v_n, v)
+            else:
+                flat, m, v = flat_n, m_n, v_n
     return _rebuild(params0, [x.detach() for x in flat])
 
 
@@ -225,4 +384,4 @@ def predict_model(params, X, family: str):
 def accuracy(params, X, y, family: str) -> float:
     with torch.no_grad():
         logits = predict_model(params, X, family)
-        return float((torch.argmax(logits, dim=1) == y).to(torch.float32).mean())
+        return float((torch.argmax(logits, dim=-1) == y).to(torch.float32).mean())

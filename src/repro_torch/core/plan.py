@@ -8,8 +8,9 @@ The port of the JAX package's ``core/plan.py``::
              sub_automl=AutoMLConfig(n_trials=12))
     result = execute(p, X, y, seed=0)            # on CUDA unless device="cpu"
 
-A ``Plan`` names a SubsetStrategy (``core/strategies.py``) and the subset
-shape and the two AutoML pass budgets.
+A ``Plan`` names a SubsetStrategy (``core/strategies.py``), the subset
+shape, the two AutoML pass budgets and, optionally, the AutoML backend of
+both passes.
 ``execute()`` runs the whole pipeline: factorize → strategy → subset →
 sub-AutoML → restricted fine-tune.  The service-tier flags of the
 reference's ``Plan`` (continuous batching, warm starts, the DST-cache
@@ -24,7 +25,7 @@ from typing import Callable, List, Optional, Tuple, Union
 
 import numpy as np
 
-from ..automl.engine import AutoMLConfig, automl_fit
+from ..automl.engine import AutoMLConfig, automl_fit, get_backend
 from ..device import DeviceLike, make_generator, resolve_device
 from ..obs import trace as _trace
 from .measures import CodedDataset, factorize
@@ -41,7 +42,8 @@ def _norm_opts(opts) -> Tuple[Tuple[str, object], ...]:
 @dataclasses.dataclass(frozen=True)
 class Plan:
     """A declarative description of one SubStrat run (see the JAX
-    package's ``Plan`` for each field's meaning)."""
+    package's ``Plan`` for each field's meaning).  ``backend``, when set,
+    overrides the AutoML backend of *both* AutoML passes."""
     strategy: Union[str, Callable] = "gen_dst"
     strategy_opts: Tuple[Tuple[str, object], ...] = ()
     n: Optional[int] = None
@@ -49,11 +51,24 @@ class Plan:
     fine_tune: bool = True
     sub_automl: AutoMLConfig = AutoMLConfig()
     ft_automl: AutoMLConfig = AutoMLConfig(n_trials=6, rungs=(60,))
+    backend: Optional[str] = None
 
     def __post_init__(self):
         if not callable(self.strategy):
             get_strategy(self.strategy)        # fail fast, listing names
+        if self.backend is not None:
+            get_backend(self.backend)
         object.__setattr__(self, "strategy_opts", _norm_opts(self.strategy_opts))
+
+    def resolved_sub_automl(self) -> AutoMLConfig:
+        if self.backend is not None:
+            return dataclasses.replace(self.sub_automl, backend=self.backend)
+        return self.sub_automl
+
+    def resolved_ft_automl(self) -> AutoMLConfig:
+        if self.backend is not None:
+            return dataclasses.replace(self.ft_automl, backend=self.backend)
+        return self.ft_automl
 
 
 def plan(
@@ -64,6 +79,7 @@ def plan(
     fine_tune: bool = True,
     sub_automl: Optional[AutoMLConfig] = None,
     ft_automl: Optional[AutoMLConfig] = None,
+    backend: Optional[str] = None,
     **strategy_opts,
 ) -> Plan:
     """Build a ``Plan``; extra keyword arguments become strategy options."""
@@ -73,7 +89,7 @@ def plan(
     if ft_automl is not None:
         kw["ft_automl"] = ft_automl
     return Plan(strategy=strategy, strategy_opts=_norm_opts(strategy_opts),
-                n=n, m=m, fine_tune=fine_tune, **kw)
+                n=n, m=m, fine_tune=fine_tune, backend=backend, **kw)
 
 
 def plan_from_config(config) -> Plan:
@@ -81,7 +97,7 @@ def plan_from_config(config) -> Plan:
     return Plan(
         strategy="gen_dst", strategy_opts=(("cfg", config.resolved_gen()),),
         n=config.n, m=config.m, fine_tune=config.fine_tune,
-        sub_automl=config.sub_automl, ft_automl=config.ft_automl,
+        sub_automl=config.resolved_sub_automl(), ft_automl=config.resolved_ft_automl(),
     )
 
 
@@ -130,13 +146,13 @@ def execute(
     with _phase("sub_automl", "automl_sub_s"):
         X_sub, y_sub = build_subset(X, y, subset.row_idx, col_idx,
                                     make_generator(seed ^ 0x5AB5))
-        intermediate = automl_fit(X_sub, y_sub, config=p.sub_automl, device=dev)
+        intermediate = automl_fit(X_sub, y_sub, config=p.resolved_sub_automl(), device=dev)
 
     if p.fine_tune:
         with _phase("fine_tune", "fine_tune_s"):
             final = automl_fit(
                 X, y,
-                config=p.ft_automl,
+                config=p.resolved_ft_automl(),
                 restrict_family=intermediate.spec.family,
                 X_test=X_test, y_test=y_test, device=dev,
             )

@@ -19,7 +19,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..automl.engine import AutoMLConfig, AutoMLResult
+from ..automl.engine import AutoMLConfig, AutoMLResult, get_backend
 from ..device import DeviceLike
 from .gen_dst import GenDSTConfig
 from .measures import CodedDataset
@@ -38,6 +38,8 @@ class SubStratConfig:
     - ``fine_tune`` — step 3 on/off; ``False`` is SubStrat-NF (paper §4.4).
     - ``sub_automl`` / ``ft_automl`` — the step-2 and step-3 budgets.
     - ``num_islands`` — overrides ``gen.num_islands`` when set.
+    - ``automl_backend`` — when set, the AutoML backend of *both* the
+      sub-AutoML and the fine-tune passes (``"batched"`` or ``"loop"``).
     """
     gen: GenDSTConfig = GenDSTConfig()
     n: Optional[int] = None
@@ -46,11 +48,26 @@ class SubStratConfig:
     sub_automl: AutoMLConfig = AutoMLConfig()
     ft_automl: AutoMLConfig = AutoMLConfig(n_trials=6, rungs=(60,))
     num_islands: Optional[int] = None
+    automl_backend: Optional[str] = None
+
+    def __post_init__(self):
+        if self.automl_backend is not None:
+            get_backend(self.automl_backend)   # unknown names list the registry
 
     def resolved_gen(self) -> GenDSTConfig:
         if self.num_islands is not None:
             return self.gen._replace(num_islands=self.num_islands)
         return self.gen
+
+    def resolved_sub_automl(self) -> AutoMLConfig:
+        if self.automl_backend is not None:
+            return dataclasses.replace(self.sub_automl, backend=self.automl_backend)
+        return self.sub_automl
+
+    def resolved_ft_automl(self) -> AutoMLConfig:
+        if self.automl_backend is not None:
+            return dataclasses.replace(self.ft_automl, backend=self.automl_backend)
+        return self.ft_automl
 
 
 @dataclasses.dataclass

@@ -1,4 +1,4 @@
-"""The port's AutoML engine against the reference's loop backend, on the CPU.
+"""The port's AutoML loop backend against the reference's loop backend, on the CPU.
 
 The spec sampling and the train/val split run the same numpy calls, so they
 are identical.  Per-trial validation accuracies agree within 2/N_val (the
@@ -21,7 +21,8 @@ from repro_torch.convert import params_from_numpy
 from _torch_port import np_
 
 CFG_J = JE.AutoMLConfig(n_trials=7, rungs=(6, 12), seed=7, backend="loop")
-CFG_T = TE.AutoMLConfig(n_trials=7, rungs=(6, 12), seed=7)   # samples all 5 families
+CFG_T = TE.AutoMLConfig(n_trials=7, rungs=(6, 12), seed=7,   # samples all 5 families
+                        backend="loop")
 
 
 @pytest.fixture(scope="module")

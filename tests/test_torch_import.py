@@ -26,6 +26,7 @@ def test_port_imports_neither_jax_nor_reference():
         "             or k == 'repro' or k.startswith('repro.'))\n"
         "assert len(names) >= 20, names\n"
         "for m in ('models.lm', 'models.ssm', 'configs.zamba2_2p7b', 'launch.serve',\n"
+        "          'automl.batched',\n"
         "          'kernels.flash_attention.kernel', 'kernels.ssd_scan.kernel'):\n"
         "    assert 'repro_torch.' + m in names, m\n"
         "assert not bad, bad\n"

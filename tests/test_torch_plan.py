@@ -3,7 +3,8 @@
 With the same subset (the reference's Gen-DST result, handed to both
 packages as a callable strategy), both packages' ``execute`` pick the same
 intermediate and final model family, and their final test accuracies agree
-within 2/N_test for each of 3 seeds.  The AutoML seed is one whose sampled
+within 2/N_test for each of 3 seeds and each AutoML backend (both packages
+given the same ``backend=``).  The AutoML seed is one whose sampled
 population has no MLP, since ``execute`` draws the MLP's init with torch.
 """
 import types
@@ -62,7 +63,8 @@ def test_build_subset_patches_missing_classes():
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
-def test_same_subset_same_families(data, seed):
+@pytest.mark.parametrize("backend", ["loop", "batched"])
+def test_same_subset_same_families(data, backend, seed):
     X, y, Xt, yt = data
     dst = JG.gen_dst(jax.random.key(seed), j_factorize(X, y), None, None,
                      JG.GenDSTConfig(psi=3, phi=8))
@@ -76,9 +78,10 @@ def test_same_subset_same_families(data, seed):
                                      fitness=float(dst.fitness))
 
     ref = j_execute(j_plan(jax_subset, sub_automl=JCfg(**AUTOML), ft_automl=JCfg(**FT),
-                           backend="loop"),
+                           backend=backend),
                     X, y, key=jax.random.key(seed), X_test=Xt, y_test=yt)
-    out = t_execute(t_plan(port_subset, sub_automl=TCfg(**AUTOML), ft_automl=TCfg(**FT)),
+    out = t_execute(t_plan(port_subset, sub_automl=TCfg(**AUTOML), ft_automl=TCfg(**FT),
+                           backend=backend),
                     X, y, seed=seed, X_test=Xt, y_test=yt, device="cpu")
     np.testing.assert_array_equal(out.row_idx, ref.row_idx)
     np.testing.assert_array_equal(out.col_idx, ref.col_idx)
