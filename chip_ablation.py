@@ -62,10 +62,15 @@ def build_parent(_build, parent: Path) -> tuple[dict, bool]:
             raise SystemExit(f"chip_ablation: nvcc failed on the parent's {stem}.cu")
         fn = getattr(ctypes.CDLL(str(lib)), f"launch_{stem}")
         fn.restype = ctypes.c_int
-        if stem == "masked_histogram" and "const void* rows" not in (
-                csrc / f"{stem}.cu").read_text():
+        source = (csrc / f"{stem}.cu").read_text()
+        if stem == "masked_histogram" and "const void* rows" not in source:
             fn.argtypes = [P_, P_, P_, I_, I_, I_, I_, P_]    # no row index: an older launcher
             gathers = False
+        elif stem == "fused_delta_fitness" and "f_ref_step" not in source:
+            # one f_ref for every candidate: an older launcher, called with
+            # this tree's arguments less the f_ref step (which must be 0)
+            fn.argtypes = [P_] * 7 + [I_] * 3 + [P_]
+            fn = (lambda raw: lambda *a: raw(*a[:10], a[11]))(fn)
         else:
             fn.argtypes = _build._SIGNATURES[stem]
         libs[stem] = fn
@@ -197,7 +202,7 @@ def main() -> None:
                           ("this", lib.launch_fused_delta_fitness)):
             def run(fn=fn, counts=None, applied=zero, new_=new):
                 check(fn(counts.data_ptr(), old.data_ptr(), new_.data_ptr(), applied.data_ptr(),
-                         cmx.data_ptr(), f_ref.data_ptr(), fit.data_ptr(), P, Mx, B, stream),
+                         cmx.data_ptr(), f_ref.data_ptr(), fit.data_ptr(), P, Mx, B, 0, stream),
                       f"{label} b2")
             mut = (torch.arange(P, device=dev) % 2).float()
             ck = counts0.clone()
@@ -231,7 +236,7 @@ def main() -> None:
         "B1 ctypes launch alone": this_b1,
         "B2 ctypes launch alone": lambda: lib.launch_fused_delta_fitness(
             counts.data_ptr(), old.data_ptr(), new.data_ptr(), zero.data_ptr(), cm.data_ptr(),
-            f_ref.data_ptr(), fit.data_ptr(), P, M, B, stream),
+            f_ref.data_ptr(), fit.data_ptr(), P, M, B, 0, stream),
         "six get_device() calls": lambda: (counts.get_device(), old.get_device(),
                                            new.get_device(), zero.get_device(),
                                            cm.get_device(), f_ref.get_device()),

@@ -22,7 +22,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    Timed beside its plain version, one ``torch.bincount`` call and its bound,
    with its device time and its host time per call.
 3. The fused Gen-DST kernel against its plain version at (100, 23, 256) and
-   at ragged P, and at edge shapes
+   at ragged P, with one F(D) for all candidates and with one per candidate
+   (as ``gen_dst_batch`` passes it), and at edge shapes
    (fractional counts and delta, 100 and 600 columns, more than a CTA's 32
    warps, slabs of a size or at an address no multiple of 16 bytes, one
    column, B no multiple of 4): counts bit-equal, fitness within 1e-6.  Timed the same
@@ -76,6 +77,23 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``execute`` timed with each backend (loop, batched, batched, loop), and
    the sub-AutoML phase of each under ``torch.profiler``: its device
    operations per rung and its device-busy share.
+11. The other subset strategies.  (a) At a small size, each of the 8
+   baselines and ``asp_proxy`` on the card (mc through both kernels) and
+   on the CPU (plain versions) from the same draws: the same subset, or at
+   a fitness near-tie a subset whose fitness is within 1e-6.  (b) On D1 at
+   full scale with the reference's default options (mc budget 100, batch
+   50; mab 200 rounds; greedy pools of 64): each through ``run_strategy``
+   (first call and warm), with B1/B2 launches per search (mc must launch
+   both), the reported fitness against a plain recomputation (1e-6), the
+   device-busy share and device operations of a search under
+   ``torch.profiler``, and the search under
+   ``torch.cuda.set_sync_debug_mode("error")`` (every one but
+   ``asp_proxy``, host numpy by design); then every registered strategy
+   through ``execute`` end to end (phase seconds, test accuracy in [0, 1]).
+   (c) ``gen_dst_batch`` on D1 and 3 copies of its spec with other seeds:
+   each result bit-equal to its solo run, B1 and B2 launched once per
+   generation for the 4, no host wait, timed beside the 4 solo runs
+   (solo, batch, batch, solo) and profiled.
 
 Then it prints the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and,
 last, ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -727,6 +745,194 @@ def phase10_automl_backends(torch, dev, X_tr, y_tr, X_te, y_te, result) -> None:
         print(f"  fine-tune {backend}: {sum(e.count for e in events)} device operations")
 
 
+# the strategies this phase adds to the card: the paper's baselines and asp_proxy
+NEW_STRATEGIES = ("mc", "mab", "greedy_seq", "greedy_mult", "km", "ig_rand", "ig_km",
+                  "asp_proxy")
+
+
+def phase11_strategies(torch, dev, K, coded, X_tr, y_tr, X_te, y_te) -> None:
+    """Every other subset strategy on the card: card against CPU at a small
+    size, each at D1 through ``run_strategy`` and ``execute`` with its
+    launches, profile and a run under sync-debug "error", then
+    ``gen_dst_batch`` on 4 D1-sized tables against the 4 solo runs."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.core import baselines as BL
+    from repro_torch.core.gen_dst import GenDSTConfig, TorchDraws, gen_dst, gen_dst_batch
+    from repro_torch.core.measures import factorize, full_column_entropy, subset_entropy
+    from repro_torch.core.plan import execute, plan
+    from repro_torch.core.strategies import (
+        asp_proxy_dst, available_strategies, get_strategy, run_strategy,
+    )
+    from repro_torch.data.tabular import PAPER_DATASETS, make_dataset, train_test_split
+    from repro_torch.device import make_generator
+    t_phase = time.perf_counter()
+
+    # (a) small size: the card (kernels) against the CPU (plain versions),
+    # from the same CPU draws
+    rng = np.random.default_rng(0)
+    Xs = np.column_stack([rng.integers(0, k, 800) for k in (3, 5, 17, 2, 40, 7)]).astype(float)
+    ys = rng.integers(0, 2, 800).astype(float)
+    small = {
+        "mc": lambda c, d, g: BL.mc_dst(None, c, 20, 3, budget=60, batch=20, device=d, draws=g),
+        "mab": lambda c, d, g: BL.mab_dst(None, c, 20, 3, rounds=30, device=d, draws=g),
+        "greedy_seq": lambda c, d, g: BL.greedy_seq_dst(None, c, 20, 3, pool=16, device=d,
+                                                        draws=g),
+        "greedy_mult": lambda c, d, g: BL.greedy_mult_dst(None, c, 20, 3, pool=16, device=d,
+                                                          draws=g),
+        "km": lambda c, d, g: BL.km_dst(None, c, 20, 3, device=d, draws=g),
+        "ig_rand": lambda c, d, g: BL.ig_rand_dst(None, c, 20, 3, device=d, draws=g),
+        "ig_km": lambda c, d, g: BL.ig_km_dst(None, c, 20, 3, device=d, draws=g),
+        "asp_proxy": lambda c, d, g: asp_proxy_dst(None, c, 20, 3, device=d, draws=g),
+    }
+    for name, fn in small.items():
+        res = {}
+        for key, d in (("card", dev), ("cpu", "cpu")):
+            r = fn(factorize(Xs, ys, device=d), d, TorchDraws(make_generator(7), d))
+            res[key] = (r.row_idx.cpu(), r.col_mask.cpu(), float(r.fitness))
+        same = torch.equal(res["card"][0], res["cpu"][0]) and torch.equal(res["card"][1],
+                                                                          res["cpu"][1])
+        err = abs(res["card"][2] - res["cpu"][2])
+        if not err <= FIT_TOL:
+            fail(f"small {name}: card and CPU fitness differ by {err} (subsets equal: {same})")
+        print(f"small {name}: card {'= CPU' if same else 'and CPU differ at a fitness near-tie'}"
+              f" (fitness {res['card'][2]:.7f}, difference {err:.2e})")
+
+    # (b) D1 at full scale, the reference's default options
+    N, M = coded.codes.shape
+    B = coded.max_bins
+    f_ref = full_column_entropy(coded.codes, B).mean().item()
+
+    def plain_fitness(row_idx, col_mask):
+        rows_t = torch.as_tensor(row_idx, device=dev)
+        mask_t = torch.as_tensor(col_mask, device=dev)
+        return -abs(subset_entropy(coded.codes, rows_t, mask_t, B).item() - f_ref)
+
+    table = []
+    for name in NEW_STRATEGIES:
+        fn = get_strategy(name).fn
+
+        def search():
+            return fn(make_generator(0, dev), coded, None, None)
+        t0 = time.perf_counter()
+        run_strategy(name, make_generator(0, dev), coded, None, None)
+        first_s = time.perf_counter() - t0
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        sub = run_strategy(name, make_generator(0, dev), coded, None, None)
+        warm_s = time.perf_counter() - t0
+        launches = K.launch_counts()
+        f_plain = plain_fitness(sub.row_idx, sub.col_mask)
+        if not (math.isfinite(sub.fitness) and abs(sub.fitness - f_plain) <= FIT_TOL):
+            fail(f"{name} at D1: fitness {sub.fitness} against its plain recomputation {f_plain}")
+        if name == "mc" and not (launches["masked_histogram"] > 0
+                                 and launches["fused_delta_fitness"] > 0):
+            fail(f"mc did not launch both Gen-DST kernels: {launches}")
+        print(f"{name} at D1 (n {len(sub.row_idx)}, m {int(sub.col_mask.sum())}): first call "
+              f"{first_s:.4f} s, warm {warm_s:.4f} s; B1 {launches['masked_histogram']}, B2 "
+              f"{launches['fused_delta_fitness']} launches per search; fitness "
+              f"{sub.fitness:.8f}, plain recomputation {f_plain:.8f}")
+        events, busy = profile_share(torch, search, top=3)
+        ops = sum(e.count for e in events)
+        if name != "asp_proxy":          # host numpy by design, as in the reference
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                search()
+            except RuntimeError as exc:
+                fail(f"{name} synchronised with the host: {exc}")
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+        table.append((name, warm_s, busy, ops, launches))
+    print("  no host sync inside any search but asp_proxy's")
+    for name in available_strategies():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = execute(plan(name), X_tr, y_tr, X_test=X_te, y_test=y_te, seed=0, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        acc = r.final.test_acc
+        if not (acc is not None and math.isfinite(acc) and 0.0 <= acc <= 1.0):
+            fail(f"execute(plan({name!r})): test accuracy {acc} is not a finite number in [0, 1]")
+        if name != "random":
+            mask = np.zeros(M, bool)
+            mask[r.col_idx] = True
+            mask[coded.target_col] = True
+            f_plain = plain_fitness(r.row_idx, mask)
+            if not abs(r.dst_fitness - f_plain) <= FIT_TOL:
+                fail(f"execute(plan({name!r})): DST fitness {r.dst_fitness} against {f_plain}")
+        print(f"execute(plan({name!r})) on D1: {wall:.4f} s; " + ", ".join(
+            f"{k} {v:.4f}" for k, v in r.times.items())
+            + f"; final {r.final.spec.family} test_acc {acc:.4f}  [{smi_line()}]")
+    print("strategies at D1 (warm run_strategy s, device-busy share of a search, device "
+          "operations per search, B1 / B2 launches per search):")
+    for name, warm_s, busy, ops, launches in table:
+        print(f"  {name:12s} {warm_s:.4f} s, busy {busy if busy is None else round(busy, 4)}, "
+              f"{ops} operations, B1 {launches['masked_histogram']}, B2 "
+              f"{launches['fused_delta_fitness']}")
+
+    # (c) gen_dst_batch: D1 and 3 copies of its spec with other seeds
+    specs = [PAPER_DATASETS["D1"]] + [dataclasses.replace(PAPER_DATASETS["D1"], seed=s)
+                                      for s in (11, 12, 13)]
+    codeds = [coded]
+    for spec in specs[1:]:
+        Xd, yd = make_dataset(spec, scale=1.0)
+        codeds.append(factorize(*train_test_split(Xd, yd)[:2], device=dev))
+    if len({(c.codes.shape, c.max_bins, c.target_col) for c in codeds}) != 1:
+        fail("gen_dst_batch: the D1-sized tables differ in shape, max_bins or target: "
+             f"{[(tuple(c.codes.shape), c.max_bins, c.target_col) for c in codeds]}")
+    cfg = GenDSTConfig()
+    seeds = (0, 1, 2, 3)
+
+    def solo_runs():
+        return [gen_dst(make_generator(s, dev), c, cfg=cfg, device=dev)
+                for s, c in zip(seeds, codeds)]
+
+    def batch_run():
+        return gen_dst_batch([make_generator(s, dev) for s in seeds], codeds, cfg=cfg,
+                             device=dev)
+    K.reset_launch_counts()
+    solos = solo_runs()
+    torch.cuda.synchronize()
+    solo_launches = K.launch_counts()
+    K.reset_launch_counts()
+    batch = batch_run()
+    torch.cuda.synchronize()
+    batch_launches = K.launch_counts()
+    for d, (a, b) in enumerate(zip(solos, batch)):
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            fail(f"gen_dst_batch: dataset {d}'s result differs from its solo run")
+    want = cfg.psi + 1                    # the initial population and each generation
+    if not (batch_launches["masked_histogram"] == batch_launches["fused_delta_fitness"] == want):
+        fail(f"gen_dst_batch launched {batch_launches}, not B1 and B2 {want} times each")
+    print(f"gen_dst_batch (D = 4 D1-sized tables, {cfg.psi} generations): each result = its "
+          f"solo run; launches batch {batch_launches}, 4 solo runs {solo_launches}")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        batch_run()
+    except RuntimeError as exc:
+        fail(f"gen_dst_batch synchronised with the host: {exc}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print("  gen_dst_batch: no host sync inside the search")
+    times = []
+    for label, run in (("4 solo", solo_runs), ("batch", batch_run), ("batch", batch_run),
+                       ("4 solo", solo_runs)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        [r.row_idx.cpu() for r in out]
+        times.append(f"{label} {time.perf_counter() - t0:.4f} s")
+    print(f"  timed (the results on the host): {', '.join(times)}  [{smi_line()}]")
+    for label, run in (("4 solo runs", solo_runs), ("batch", batch_run)):
+        print(f"  profiled {label}:")
+        events, _ = profile_share(torch, run, top=4)
+        print(f"  {label}: {sum(e.count for e in events)} device operations")
+    print(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -894,12 +1100,13 @@ def main() -> None:
         out = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)[off:].view(t.shape)
         return out.copy_(t)
 
-    def check_fused(label, counts, old, new, applied, cm):
+    def check_fused(label, counts, old, new, applied, cm, f=f_ref):
         """The kernel against the plain version on copies of ``counts`` (the
         kernel's at the same address modulo 16 bytes): counts bit-equal,
-        fitness within FIT_TOL; returns the fitness error."""
-        cr, fr = fused_delta_fitness_ref(counts.clone(), old, new, applied, cm, f_ref)
-        ck, fk = fused_delta_fitness_cuda(copy_at(counts), old, new, applied, cm, f_ref)
+        fitness within FIT_TOL; returns the fitness error.  ``f`` is one F(D)
+        or one per candidate."""
+        cr, fr = fused_delta_fitness_ref(counts.clone(), old, new, applied, cm, f)
+        ck, fk = fused_delta_fitness_cuda(copy_at(counts), old, new, applied, cm, f)
         torch.cuda.synchronize()
         if not torch.equal(ck, cr):
             fail(f"fused_delta_fitness: counts not bit-equal at {label}")
@@ -922,6 +1129,11 @@ def main() -> None:
             err = check_fused(f"P={Pe} M={M} B={B} {applied_kind}", counts, old, new, applied, cm)
             if Pe == P:
                 fit_err = max(fit_err, err)
+        # one F(D) per candidate, as gen_dst_batch passes it (stride 1)
+        f_each = torch.as_tensor(rng.random(Pe) * 3.0, dtype=torch.float32, device=dev)
+        applied = torch.as_tensor(rng.random(Pe) < 0.5, device=dev).float()
+        check_fused(f"P={Pe} M={M} B={B} mutation, an f_ref per candidate", counts, old, new,
+                    applied, cm, f_each)
     # edge shapes: fractional counts and delta; 100 and 600 columns, more than
     # a CTA's 32 warps; slabs of a size, or at an address, no multiple of 16
     # bytes (scalar loads); one column; B no multiple of 4
@@ -1081,6 +1293,9 @@ def main() -> None:
 
     # --- 10. the AutoML backends on the card -----------------------------------
     phase10_automl_backends(torch, dev, X_tr, y_tr, X_te, y_te, result)
+
+    # --- 11. the other subset strategies and batched Gen-DST ---------------------
+    phase11_strategies(torch, dev, K, coded, X_tr, y_tr, X_te, y_te)
 
     print(json.dumps({"kernels": kernels}))
     print(smi_line())

@@ -27,10 +27,17 @@ operations.  What differs here:
   tensors stay on the device: best-so-far tracking is ``torch.where``, and
   nothing is read back until the caller converts the result
   (DESIGN.md §5.3).
+* **Batches as islands.**  ``gen_dst_batch`` runs D same-shaped datasets'
+  searches as one, where the reference vmaps its jitted search: their
+  tables are stacked on the row axis and their islands on the island axis,
+  so a generation launches each kernel once whatever D is, and the fused
+  kernel reads each candidate's own F(D).  Each dataset's draws come from
+  its own provider in its solo order, and migration and selection stay
+  within its islands, so each result is bit-equal to its solo run.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -39,7 +46,7 @@ from ..kernels.entropy.ops import population_histogram_rows
 from ..kernels.gen_dst.ops import fused_delta_fitness
 from .measures import MEASURES, CodedDataset, full_column_entropy
 
-__all__ = ["GenDSTConfig", "DSTResult", "TorchDraws", "gen_dst",
+__all__ = ["GenDSTConfig", "DSTResult", "TorchDraws", "gen_dst", "gen_dst_batch",
            "default_dst_size", "random_dst"]
 
 
@@ -239,11 +246,13 @@ def _select_idx(fitness: torch.Tensor, drawn: torch.Tensor, *, alpha: float) -> 
     return torch.cat([elite, drawn.to(elite.dtype)], dim=-1)
 
 
-def _ring_migrate(rows, cols, counts, fit, *, k: int):
+def _ring_migrate(rows, cols, counts, fit, *, k: int, groups: int = 1):
     """Replace each island's worst k candidates with its neighbour's best k.
 
     All tensors carry an (I, phi, ...) leading pair; ``counts`` may be None
-    (values-based measures carry none)."""
+    (values-based measures carry none).  With ``groups`` > 1 the islands are
+    that many rings of I / groups islands each (one per dataset of a batch),
+    and migration stays within each ring."""
     I, phi = fit.shape
     order = torch.argsort(-fit, dim=1, stable=True)
     best_i, worst_i = order[:, :k], order[:, phi - k:]
@@ -253,7 +262,9 @@ def _ring_migrate(rows, cols, counts, fit, *, k: int):
         if x is None:
             return None
         out = x.clone()
-        out[ai, worst_i] = torch.roll(_gather_cands(x, best_i), 1, dims=0)
+        best = _gather_cands(x, best_i)
+        ring = best.reshape((groups, I // groups) + best.shape[1:])
+        out[ai, worst_i] = torch.roll(ring, 1, dims=1).reshape(best.shape)
         return out
 
     return swap(rows), swap(cols), swap(counts), swap(fit)
@@ -265,48 +276,61 @@ def _ring_migrate(rows, cols, counts, fit, *, k: int):
 
 
 class TorchDraws:
-    """Makes every random input of the GA with one ``torch.Generator``.
+    """Makes every random input of the GA, and of the baselines
+    (``core/baselines.py``), with one ``torch.Generator``.
 
     Draws are made on the generator's device and moved to ``device``; with
     a generator on the run's device (the default) nothing moves and nothing
     syncs.  ``generation()`` returns the provider for one generation (this
-    object itself)."""
+    object itself).  The baselines draw through ``split``, ``uniform``,
+    ``randint``, ``choice`` and ``init``, which mirror the reference's uses
+    of one ``jax.random`` key: ``split`` gives the providers of sub-keys,
+    which here all draw from the one generator in turn."""
 
     def __init__(self, generator: torch.Generator, device):
         self.gen = generator
         self.device = torch.device(device)
 
-    def _rand(self, *shape):
+    def uniform(self, *shape):
         return torch.rand(shape, generator=self.gen, device=self.gen.device).to(self.device)
 
-    def _randint(self, high, *shape):
+    def randint(self, high, *shape):
         return torch.randint(0, high, shape, generator=self.gen, device=self.gen.device,
                              dtype=torch.int32).to(self.device)
 
     def _perm(self, *shape):
-        return self._rand(*shape).argsort(dim=-1)
+        return self.uniform(*shape).argsort(dim=-1)
+
+    def split(self, num: int = 2) -> list:
+        return [self] * num
+
+    def choice(self, P: int, k: int) -> torch.Tensor:
+        """k distinct indices of range(P), int64: a random permutation's
+        prefix, as ``jax.random.choice(..., replace=False)`` draws them."""
+        perm = torch.randperm(P, generator=self.gen, device=self.gen.device)
+        return perm[:k].to(self.device)
 
     def init(self, I, phi, N, M, n):
-        return {"rows": self._randint(N, I, phi, n), "dedup": self._randint(N, I, phi, n),
-                "col_u": self._rand(I, phi, M)}
+        return {"rows": self.randint(N, I, phi, n), "dedup": self.randint(N, I, phi, n),
+                "col_u": self.uniform(I, phi, M)}
 
     def generation(self):
         return self
 
     def mutate(self, I, phi, N, M, n):
-        return {"u_mut": self._rand(I, phi), "u_rc": self._rand(I, phi),
-                "slot": self._randint(n, I, phi), "fresh": self._randint(N, I, phi),
-                "u_off": self._rand(I, phi, M), "u_on": self._rand(I, phi, M)}
+        return {"u_mut": self.uniform(I, phi), "u_rc": self.uniform(I, phi),
+                "slot": self.randint(n, I, phi), "fresh": self.randint(N, I, phi),
+                "u_off": self.uniform(I, phi, M), "u_on": self.uniform(I, phi, M)}
 
     def cross(self, I, phi, N, M, n, m):
         half = phi // 2
         s_r, s_c = _crossover_splits(self.gen, (I, half), n, m, self.device)
-        d = {"perm": self._perm(I, phi), "u_cross": self._rand(I, half),
+        d = {"perm": self._perm(I, phi), "u_cross": self.uniform(I, half),
              "s_r": s_r, "s_c": s_c,
              "pi_a": self._perm(I, half, n), "pi_b": self._perm(I, half, n),
-             "fresh_ab": self._randint(N, I, half, n), "fresh_ba": self._randint(N, I, half, n)}
+             "fresh_ab": self.randint(N, I, half, n), "fresh_ba": self.randint(N, I, half, n)}
         for name in ("u_ab1", "u_ab2", "u_abf", "u_ba1", "u_ba2", "u_baf"):
-            d[name] = self._rand(I, half, M)
+            d[name] = self.uniform(I, half, M)
         return d
 
     def select(self, probs: torch.Tensor, k: int) -> torch.Tensor:
@@ -316,49 +340,117 @@ class TorchDraws:
         return drawn.to(self.device)
 
 
+class _StackedDraws:
+    """The draws of D searches run as one, islands stacked dataset by
+    dataset: each dataset's provider makes its own islands' draws, in the
+    order its solo run makes them."""
+
+    def __init__(self, providers, I: int):
+        self.providers, self.I = providers, I
+
+    @staticmethod
+    def _cat(parts) -> dict:
+        return {name: torch.cat([p[name] for p in parts]) for name in parts[0]}
+
+    def init(self, *shape):
+        return self._cat([p.init(*shape) for p in self.providers])
+
+    def generation(self):
+        return _StackedDraws([p.generation() for p in self.providers], self.I)
+
+    def mutate(self, *shape):
+        return self._cat([p.mutate(*shape) for p in self.providers])
+
+    def cross(self, *shape):
+        return self._cat([p.cross(*shape) for p in self.providers])
+
+    def select(self, probs: torch.Tensor, k: int) -> torch.Tensor:
+        I = self.I
+        return torch.cat([p.select(probs[d * I:(d + 1) * I], k)
+                          for d, p in enumerate(self.providers)])
+
+
 # ---------------------------------------------------------------------------
 # the search
 # ---------------------------------------------------------------------------
 
 
-def _take_first(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
-    """x[i] for a 0-d index tensor, without reading it back to the host."""
-    return torch.index_select(x, 0, i.reshape(1))[0]
+def _entropy_fitness(codes, B: int, f_ref, rows, cols) -> torch.Tensor:
+    """(..., phi) fitness of candidates with rows (..., phi, n) and masks
+    (..., phi, M): their histograms by the masked-histogram kernel (B1, which
+    gathers the rows), reduced by the fused kernel (B2) with a zero delta,
+    as Gen-DST's initial population is scored (the reference's
+    ``_entropy_fitness``, ``gen_dst.py:169``)."""
+    lead, n, M = rows.shape[:-1], rows.shape[-1], codes.shape[1]
+    counts = population_histogram_rows(codes, rows.reshape(-1, n), B).reshape(lead + (M, B))
+    zero_codes = torch.zeros(lead + (M,), dtype=torch.int32, device=codes.device)
+    no_delta = torch.zeros(lead, dtype=torch.float32, device=codes.device)
+    return fused_delta_fitness(counts, zero_codes, zero_codes, no_delta, cols, f_ref)[1]
 
 
-def _gen_dst_run(codes, values, n: int, m: int, cfg: GenDSTConfig, B: int, target: int, draws):
-    """The GA body: init, then ``cfg.psi`` generations, all on the device."""
-    N, M = codes.shape
+def _gen_dst_run(codes, values, N: int, n: int, m: int, cfg: GenDSTConfig, B: int, target: int,
+                 draws):
+    """The GA body for D same-shaped datasets stacked on the row axis (codes
+    and values (D*N, M)): init, then ``cfg.psi`` generations, all on the
+    device.  Dataset d's I islands are islands d*I .. d*I + I - 1 of one
+    population, so each generation launches B1 and B2 once whatever D is;
+    row indices stay in [0, N) and are offset by d*N where they read the
+    table.  Returns per dataset: best rows (D, n), masks (D, M), fitness
+    (D,), history (D, psi) and F(D) (D,)."""
+    M = codes.shape[1]
+    D = codes.shape[0] // N
     I, phi = cfg.num_islands, cfg.phi
+    G = D * I                                    # islands of all datasets
     dev = codes.device
     entropy = cfg.measure == "entropy"
 
+    parts = [slice(d * N, (d + 1) * N) for d in range(D)]
     if entropy:
-        f_ref = full_column_entropy(codes, B).mean()
+        f_refs = [full_column_entropy(codes[p], B).mean() for p in parts]
     else:
         measure_fn = MEASURES[cfg.measure]
-        f_ref = measure_fn(values)
+        f_refs = [measure_fn(values[p]) for p in parts]
+    if D == 1:
+        f_ref = f_cand = f_refs[0]
+        offset = None
+    else:
+        # one F(D) per candidate, and each island's row offset in the table
+        f_ref = torch.stack(f_refs)
+        f_cand = f_ref[:, None, None].expand(D, I, phi).reshape(G, phi)
+        offset = (torch.arange(D, device=dev, dtype=torch.int32) * N)[:, None].expand(
+            D, I).reshape(G, 1)
+
+    def in_table(idx):
+        """(G, phi, ...) row indices as rows of the stacked table."""
+        if offset is None:
+            return idx
+        return idx + offset.reshape((G,) + (1,) * (idx.dim() - 1))
 
     def pop_counts(rows):
         # one launch gathers the candidates' rows and counts them
-        return population_histogram_rows(codes, rows.reshape(-1, n), B).reshape(I, phi, M, B)
+        return population_histogram_rows(codes, in_table(rows).reshape(-1, n), B).reshape(
+            G, phi, M, B)
 
-    no_delta = torch.zeros((I, phi), dtype=torch.float32, device=dev)
+    no_delta = torch.zeros((G, phi), dtype=torch.float32, device=dev)
 
     def fitness(rows, cols, counts, applied, old_codes, new_codes):
         if not entropy:
-            return None, -(measure_fn(values, rows, cols) - f_ref).abs()
-        return fused_delta_fitness(counts, old_codes, new_codes, applied, cols, f_ref)
+            return None, -(measure_fn(values, in_table(rows), cols) - f_cand).abs()
+        return fused_delta_fitness(counts, old_codes, new_codes, applied, cols, f_cand)
+
+    def best_of(fit, rows, cols):
+        """Each dataset's best candidate: fitness (D,), rows (D, n), mask (D, M)."""
+        flat = fit.reshape(D, I * phi)
+        g = flat.argmax(1, keepdim=True)
+        return (flat.gather(1, g)[:, 0],
+                rows.reshape(D, I * phi, n).gather(1, g[..., None].expand(D, 1, n))[:, 0],
+                cols.reshape(D, I * phi, M).gather(1, g[..., None].expand(D, 1, M))[:, 0])
 
     rows, cols = _init_population(draws.init(I, phi, N, M, n), N, M, n, m, target)
     counts = pop_counts(rows) if entropy else None
-    zero_codes = torch.zeros((I, phi, M), dtype=torch.int32, device=dev)
+    zero_codes = torch.zeros((G, phi, M), dtype=torch.int32, device=dev)
     counts, fit0 = fitness(rows, cols, counts, no_delta, zero_codes, zero_codes)
-    flat0 = fit0.reshape(-1)
-    b0 = torch.argmax(flat0)
-    best_f = _take_first(flat0, b0)
-    best_r = _take_first(rows.reshape(-1, n), b0)
-    best_c = _take_first(cols.reshape(-1, M), b0)
+    best_f, best_r, best_c = best_of(fit0, rows, cols)
 
     op_kw = dict(N=N, M=M, n=n, m=m, p_rc=cfg.p_rc, target=target)
     k_mig = max(1, int(round(cfg.migrate_frac * phi)))
@@ -381,25 +473,24 @@ def _gen_dst_run(codes, values, n: int, m: int, cfg: GenDSTConfig, B: int, targe
         else:
             rows2, cols2, counts_b, app = rows1, cols1, pop_counts(rows1), no_delta
         counts2, fit = fitness(rows2, cols2, counts_b, app,
-                               codes[old_vals.long()], codes[fresh.long()])
+                               codes[in_table(old_vals).long()], codes[in_table(fresh).long()])
 
-        flat = fit.reshape(-1)
-        g_best = torch.argmax(flat)
-        f_best = _take_first(flat, g_best)
+        f_best, r_best, c_best = best_of(fit, rows2, cols2)
         better = f_best > best_f
         best_f = torch.where(better, f_best, best_f)
-        best_r = torch.where(better, _take_first(rows2.reshape(-1, n), g_best), best_r)
-        best_c = torch.where(better, _take_first(cols2.reshape(-1, M), g_best), best_c)
+        best_r = torch.where(better[:, None], r_best, best_r)
+        best_c = torch.where(better[:, None], c_best, best_c)
 
         if I > 1 and (gen_idx + 1) % cfg.migrate_every == 0:
-            rows2, cols2, counts2, fit = _ring_migrate(rows2, cols2, counts2, fit, k=k_mig)
+            rows2, cols2, counts2, fit = _ring_migrate(rows2, cols2, counts2, fit, k=k_mig,
+                                                       groups=D)
 
         keep = _select_idx(fit, g.select(_selection_probs(fit), n_drawn), alpha=cfg.alpha)
         rows, cols = _gather_cands(rows2, keep), _gather_cands(cols2, keep)
         counts = None if counts2 is None else _gather_cands(counts2, keep)
         history.append(best_f)
-    hist = torch.stack(history) if history else torch.zeros(0, device=dev)
-    return best_r, best_c, best_f, hist, f_ref
+    hist = torch.stack(history, dim=1) if history else torch.zeros((D, 0), device=dev)
+    return best_r, best_c, best_f, hist, f_ref.reshape(D)
 
 
 def _resolve_nm(coded: CodedDataset, n, m):
@@ -411,6 +502,11 @@ def _resolve_nm(coded: CodedDataset, n, m):
 def _on_device(coded: CodedDataset, device: DeviceLike):
     dev = resolve_device(device)
     return (coded if coded.device == dev else coded.to(dev)), dev
+
+
+def _default_draws(generator: Optional[torch.Generator], dev) -> TorchDraws:
+    """Draws from ``generator``, or from seed 0 on the device."""
+    return TorchDraws(make_generator(0, dev) if generator is None else generator, dev)
 
 
 def gen_dst(
@@ -432,10 +528,56 @@ def gen_dst(
     n, m = _resolve_nm(coded, n, m)
     _validate_cfg(cfg)
     if draws is None:
-        draws = TorchDraws(make_generator(0, dev) if generator is None else generator, dev)
+        draws = _default_draws(generator, dev)
     best_r, best_c, best_f, history, f_ref = _gen_dst_run(
-        coded.codes, coded.values, n, m, cfg, coded.max_bins, coded.target_col, draws)
-    return DSTResult(best_r, best_c, best_f, history, f_ref)
+        coded.codes, coded.values, coded.num_rows, n, m, cfg, coded.max_bins,
+        coded.target_col, draws)
+    return DSTResult(best_r[0], best_c[0], best_f[0], history[0], f_ref[0])
+
+
+def gen_dst_batch(
+    generators: Sequence[Optional[torch.Generator]],
+    codeds: Sequence[CodedDataset],
+    n: Optional[int] = None,
+    m: Optional[int] = None,
+    cfg: GenDSTConfig = GenDSTConfig(),
+    *,
+    device: DeviceLike = None,
+    draws=None,
+) -> list:
+    """Run Gen-DST on several same-shaped datasets as one search.
+
+    ``generators``/``codeds`` are parallel sequences; every dataset must
+    share the ``codes`` shape, ``max_bins`` and ``target_col``.  The D
+    searches are independent: their islands are stacked into one population
+    (D x ``num_islands`` islands), so each generation launches each kernel
+    once for all of them, while migration and selection stay within each
+    dataset's islands.  Each result is bit-equal to a solo ``gen_dst`` with
+    the same generator.  ``draws``, when given, is one draw provider per
+    dataset."""
+    if len(generators) != len(codeds) or not codeds:
+        raise ValueError("gen_dst_batch: generators and codeds must be equal-length"
+                         " non-empty sequences")
+    c0 = codeds[0]
+    for c in codeds[1:]:
+        if (c.codes.shape != c0.codes.shape or c.max_bins != c0.max_bins
+                or c.target_col != c0.target_col):
+            raise ValueError("gen_dst_batch: all datasets must share the "
+                             "codes shape, max_bins, and target_col")
+    dev = resolve_device(device)
+    n, m = _resolve_nm(c0, n, m)
+    _validate_cfg(cfg)
+    if draws is None:
+        draws = [_default_draws(g, dev) for g in generators]
+    elif len(draws) != len(codeds):
+        raise ValueError("gen_dst_batch: one draw provider per dataset")
+    best_r, best_c, best_f, history, f_ref = _gen_dst_run(
+        torch.cat([c.codes.to(dev) for c in codeds]),
+        torch.cat([c.values.to(dev) for c in codeds]),
+        c0.num_rows, n, m, cfg, c0.max_bins, c0.target_col,
+        _StackedDraws(list(draws), cfg.num_islands))
+    return [DSTResult(best_r[d], best_c[d], best_f[d], history[d], f_ref[d])
+            for d in range(len(codeds))]
 
 
 def random_dst(generator: Optional[torch.Generator], coded: CodedDataset,
@@ -445,7 +587,7 @@ def random_dst(generator: Optional[torch.Generator], coded: CodedDataset,
     coded, dev = _on_device(coded, device)
     n, m = _resolve_nm(coded, n, m)
     N, M = coded.codes.shape
-    draws = TorchDraws(make_generator(0, dev) if generator is None else generator, dev)
+    draws = _default_draws(generator, dev)
     rows, cols = _init_population(draws.init(1, 2, N, M, n), N, M, n, m, coded.target_col)
     nan = torch.tensor(float("nan"), device=dev)
     return DSTResult(rows[0, 0], cols[0, 0], nan, torch.zeros(0, device=dev), nan)

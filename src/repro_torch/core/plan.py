@@ -12,9 +12,10 @@ A ``Plan`` names a SubsetStrategy (``core/strategies.py``), the subset
 shape, the two AutoML pass budgets and, optionally, the AutoML backend of
 both passes.
 ``execute()`` runs the whole pipeline: factorize → strategy → subset →
-sub-AutoML → restricted fine-tune.  The service-tier flags of the
-reference's ``Plan`` (continuous batching, warm starts, the DST-cache
-identity) come with the service port.
+sub-AutoML → restricted fine-tune.  ``Plan.cacheable``, ``Plan.batchable``
+and ``Plan.subset_identity`` say what the service layer may cache and merge;
+the reference's service-tier flags (continuous batching, warm starts) come
+with the service port.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ import numpy as np
 from ..automl.engine import AutoMLConfig, automl_fit, get_backend
 from ..device import DeviceLike, make_generator, resolve_device
 from ..obs import trace as _trace
+from .gen_dst import _resolve_nm
 from .measures import CodedDataset, factorize
 from .strategies import SubsetResult, get_strategy, run_strategy
 
@@ -69,6 +71,23 @@ class Plan:
         if self.backend is not None:
             return dataclasses.replace(self.ft_automl, backend=self.backend)
         return self.ft_automl
+
+    @property
+    def cacheable(self) -> bool:
+        """Whether this plan's subset is DST-cache eligible: a *registered*
+        strategy whose output is a pure function of (dataset, n, m, opts)."""
+        return not callable(self.strategy) and get_strategy(self.strategy).cacheable
+
+    @property
+    def batchable(self) -> bool:
+        """Whether the strategy can run same-shaped searches as one."""
+        return not callable(self.strategy) and get_strategy(self.strategy).batch_fn is not None
+
+    def subset_identity(self, coded: CodedDataset) -> tuple:
+        """The hashable identity of this plan's subset-search problem on
+        ``coded``: the resolved subset shape, the strategy and its options."""
+        n, m = _resolve_nm(coded, self.n, self.m)
+        return (n, m, self.strategy, self.strategy_opts)
 
 
 def plan(

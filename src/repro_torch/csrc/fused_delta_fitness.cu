@@ -4,7 +4,7 @@
 //   counts[p, m, old[p, m]] -= applied[p];  counts[p, m, new[p, m]] += applied[p]
 //   h[p, m]  = -sum_b q log2 q,  q = counts[p, m, b] / max(sum_b counts[p, m, b], 1e-12)
 //   f_d[p]   = sum_m h[p, m] cm[p, m] / max(sum_m cm[p, m], 1)
-//   fit[p]   = -|f_d[p] - f_ref|
+//   fit[p]   = -|f_d[p] - f_ref[p]|    (one f_ref for every p, or one per p)
 //
 // Replaces the Pallas TPU kernel `fused_delta_fitness_pallas`
 // (src/repro/kernels/gen_dst/kernel.py:77, body `fused_delta_fitness_kernel` :39),
@@ -157,7 +157,7 @@ fused_delta_fitness_kernel(float* __restrict__ counts, const int32_t* __restrict
                            const int32_t* __restrict__ new_codes,
                            const float* __restrict__ applied, const bool* __restrict__ col_mask,
                            const float* __restrict__ f_ref, float* __restrict__ fit,
-                           int M, int B) {
+                           int M, int B, int f_ref_step) {
     // dynamic shared memory: the same layout in static arrays measured slower
     extern __shared__ __align__(16) unsigned char smem[];
     uint64_t& bar = *reinterpret_cast<uint64_t*>(smem);
@@ -218,21 +218,28 @@ fused_delta_fitness_kernel(float* __restrict__ counts, const int32_t* __restrict
     if (warp == 0) {
         num = warp_sum(lane < nwarps ? warp_num[lane] : 0.0);
         den = warp_sum(lane < nwarps ? warp_den[lane] : 0.0);
-        if (lane == 0) fit[p] = (float)(-fabs(num / fmax(den, 1.0) - (double)f_ref[0]));
+        if (lane == 0) {
+            const double f = (double)f_ref[(size_t)p * f_ref_step];
+            fit[p] = (float)(-fabs(num / fmax(den, 1.0) - f));
+        }
     }
 }
 
 }  // namespace
 
 // Returns a cudaError_t as int: 0 on success. Launches on `stream`, does not
-// synchronise and allocates nothing; `counts` is updated in place.  The first
+// synchronise and allocates nothing; `counts` is updated in place.  Candidate p
+// reads f_ref[p * f_ref_step]: one F(D) for all (step 0) or one per candidate
+// (step 1), as when several datasets' searches share a launch.  The first
 // call on a device also fills the device's log2 table, a synchronous 8 KB copy
 // from the host (so not inside a CUDA graph capture).
 extern "C" int launch_fused_delta_fitness(void* counts, const void* old_codes,
                                           const void* new_codes, const void* applied,
                                           const void* col_mask, const void* f_ref,
-                                          void* fit, int P, int M, int B, void* stream) {
-    if (P < 0 || M <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
+                                          void* fit, int P, int M, int B, int f_ref_step,
+                                          void* stream) {
+    if (P < 0 || M <= 0 || B <= 0 || (f_ref_step != 0 && f_ref_step != 1))
+        return (int)cudaErrorInvalidValue;
     if (P == 0) return (int)cudaSuccess;
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
@@ -248,6 +255,7 @@ extern "C" int launch_fused_delta_fitness(void* counts, const void* old_codes,
     fused_delta_fitness_kernel<<<P, 32 * (M < MAX_WARPS ? M : MAX_WARPS), HEADER + LOG2_BYTES,
                                  (cudaStream_t)stream>>>(
         (float*)counts, (const int32_t*)old_codes, (const int32_t*)new_codes,
-        (const float*)applied, (const bool*)col_mask, (const float*)f_ref, (float*)fit, M, B);
+        (const float*)applied, (const bool*)col_mask, (const float*)f_ref, (float*)fit, M, B,
+        f_ref_step);
     return (int)cudaGetLastError();
 }

@@ -47,7 +47,7 @@ _SIGNATURES = {
          _C_PTR],
     "fused_delta_fitness":
         [_C_PTR, _C_PTR, _C_PTR, _C_PTR, _C_PTR, _C_PTR, _C_PTR,
-         _C_INT, _C_INT, _C_INT, _C_PTR],
+         _C_INT, _C_INT, _C_INT, _C_INT, _C_PTR],
     "flash_attention":
         [_C_PTR, _C_PTR, _C_PTR, _C_PTR,
          _C_INT, _C_INT, _C_INT, _C_INT, _C_INT, _C_INT, _C_INT, _C_INT, _C_FLOAT, _C_PTR],

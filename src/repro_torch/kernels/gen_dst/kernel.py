@@ -35,8 +35,9 @@ def fused_delta_fitness_cuda(counts, old_codes, new_codes, applied, col_mask, f_
     """In-place delta + fitness over (..., M, B) f32 ``counts``.
 
     ``old_codes``/``new_codes`` (..., M) int32, ``applied`` (...,) f32,
-    ``col_mask`` (..., M) bool, ``f_ref`` a one-element f32 tensor on the
-    device, all contiguous.  Returns ``(counts, fitness)``, fitness (...,)."""
+    ``col_mask`` (..., M) bool, ``f_ref`` f32 on the device, one element or
+    one per candidate (shape (...,)), all contiguous.  Returns
+    ``(counts, fitness)``, fitness (...,)."""
     global launches
     dev = counts.get_device()
     if dev < 0 or not (old_codes.get_device() == new_codes.get_device() == applied.get_device()
@@ -51,11 +52,19 @@ def fused_delta_fitness_cuda(counts, old_codes, new_codes, applied, col_mask, f_
         raise ValueError(f"fused_delta_fitness_cuda: counts must be (..., M, B), got {shape}")
     col_shape = shape[:-1]
     if (old_codes.shape != col_shape or new_codes.shape != col_shape
-            or col_mask.shape != col_shape or applied.shape != col_shape[:-1]
-            or f_ref.numel() != 1):
+            or col_mask.shape != col_shape or applied.shape != col_shape[:-1]):
         raise ValueError("fused_delta_fitness_cuda: inputs do not match counts' (..., M)")
+    # the kernel reads candidate p's F(D) at f_ref[p * step]
+    if f_ref.numel() == 1:
+        f_ref_step = 0
+    elif f_ref.shape == applied.shape:
+        f_ref_step = 1
+    else:
+        raise ValueError("fused_delta_fitness_cuda: f_ref must have one element or one per "
+                         "candidate")
     if not (counts.is_contiguous() and old_codes.is_contiguous() and new_codes.is_contiguous()
-            and applied.is_contiguous() and col_mask.is_contiguous()):
+            and applied.is_contiguous() and col_mask.is_contiguous()
+            and f_ref.is_contiguous()):
         raise ValueError("fused_delta_fitness_cuda: tensors must be contiguous")
     M, B = shape[-2], shape[-1]
     fit = counts.new_empty(col_shape[:-1])      # new_empty: no device argument to parse
@@ -64,7 +73,7 @@ def fused_delta_fitness_cuda(counts, old_codes, new_codes, applied, col_mask, f_
         return counts, fit
     err = _build.library().launch_fused_delta_fitness(
         counts.data_ptr(), old_codes.data_ptr(), new_codes.data_ptr(), applied.data_ptr(),
-        col_mask.data_ptr(), f_ref.data_ptr(), fit.data_ptr(), P, M, B,
+        col_mask.data_ptr(), f_ref.data_ptr(), fit.data_ptr(), P, M, B, f_ref_step,
         _build.stream(dev))
     _build.check(err, "fused_delta_fitness")
     launches += 1

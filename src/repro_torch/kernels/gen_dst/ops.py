@@ -28,8 +28,10 @@ def fused_delta_fitness(counts, old_codes, new_codes, applied, col_mask, f_ref):
     """``(counts', fitness)`` for one fused Gen-DST generation update.
 
     ``counts'[p]`` is ``counts[p]`` with row ``old -> new`` swapped where
-    ``applied[p]``; ``fitness[p] = -|F(d_p) - F(D)|`` from the updated
-    counts under ``col_mask[p]``.  ``counts`` must be contiguous: it is
+    ``applied[p]``; ``fitness[p] = -|F(d_p) - F(D_p)|`` from the updated
+    counts under ``col_mask[p]``.  ``f_ref`` is one F(D) for every candidate,
+    or one per candidate (the leading shape of ``applied``), as when several
+    datasets' searches share a call.  ``counts`` must be contiguous: it is
     updated in place.  The other inputs are taken as the plain version takes
     them, strided or of another dtype for ``applied``, ``col_mask`` and
     ``f_ref``; on a card, inputs already contiguous and of the kernel's dtypes,
@@ -45,10 +47,11 @@ def fused_delta_fitness(counts, old_codes, new_codes, applied, col_mask, f_ref):
                 and f_ref.get_device() == counts.get_device()):
             f_ref = torch.as_tensor(f_ref, dtype=torch.float32, device=counts.device)
         return fused_delta_fitness_cuda(counts, old_codes.contiguous(), new_codes.contiguous(),
-                                        applied.contiguous(), col_mask.contiguous(), f_ref)
+                                        applied.contiguous(), col_mask.contiguous(),
+                                        f_ref.contiguous())
     lead = old_codes.shape[:-1]
     M, B = counts.shape[-2:]
-    f_ref = torch.as_tensor(f_ref, dtype=torch.float32, device=counts.device).reshape(1)
+    f_ref = torch.as_tensor(f_ref, dtype=torch.float32, device=counts.device).reshape(-1)
     _, fit = fused_delta_fitness_ref(counts.view(-1, M, B), old_codes.reshape(-1, M),
                                      new_codes.reshape(-1, M), applied.reshape(-1),
                                      col_mask.reshape(-1, M), f_ref)

@@ -18,7 +18,8 @@ __all__ = ["fused_delta_fitness_ref"]
 
 def fused_delta_fitness_ref(counts, old_codes, new_codes, applied, col_mask, f_ref):
     """Delta-update ``counts`` (P, M, B) in place, then return
-    ``(counts, fitness)`` with ``fitness[p] = -|F(d_p) - F(D)|``."""
+    ``(counts, fitness)`` with ``fitness[p] = -|F(d_p) - F(D_p)|``; ``f_ref``
+    holds one F(D) for every candidate, or one per candidate (P,)."""
     P, M = old_codes.shape
     w = applied.to(torch.float32)[:, None].expand(P, M)
     ai = torch.arange(P, device=counts.device)[:, None].expand(P, M)

@@ -166,3 +166,31 @@ class _JaxGeneration:
 def _choice(keys, probs, k):
     phi = probs.shape[1]
     return jax.vmap(lambda kk, p: jax.random.choice(kk, phi, (k,), replace=True, p=p))(keys, probs)
+
+
+class JaxKey:
+    """Draw provider that stands for one ``jax.random`` key, for the port's
+    baselines (``repro_torch.core.baselines``) and ``kmeans``: ``split`` splits
+    the key as the reference does, and each draw is the reference's own call
+    on this key, so two draws from one provider repeat the reference's reuse
+    of a key."""
+
+    def __init__(self, key):
+        self.key = key
+
+    def split(self, num: int = 2):
+        return [JaxKey(k) for k in jax.random.split(self.key, num)]
+
+    def uniform(self, *shape):
+        return t(jax.random.uniform(self.key, shape))
+
+    def randint(self, high, *shape):
+        return t(jax.random.randint(self.key, shape, 0, high, dtype=jnp.int32))
+
+    def choice(self, P, k):
+        return t(jax.random.choice(self.key, P, (k,), replace=False), torch.int64)
+
+    def init(self, I, phi, N, M, n):
+        """``_init_population(key, ..., phi)``'s draws, one island."""
+        assert I == 1
+        return to_port([init_draws(self.key, phi, N, M, n)])

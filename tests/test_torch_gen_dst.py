@@ -241,3 +241,73 @@ def test_result_invariants(coded):
     assert rd.row_idx.shape == (n,) and int(rd.col_mask.sum()) == m
     with pytest.raises(ValueError):
         T.gen_dst(None, ct, n, m, T.GenDSTConfig(phi=7), device="cpu")
+
+
+@pytest.mark.parametrize("measure", ["pnorm", "mean_correlation", "coeff_variation"])
+def test_whole_run_other_measures_on_reference_draws(coded, measure):
+    """The values-based measures, with islands, crossover every other
+    generation and recomputed (not incremental) counts: the reference's run."""
+    cj, ct = coded
+    cfg = J.GenDSTConfig(psi=3, phi=PHI, num_islands=2, cross_every=2, migrate_every=2,
+                         migrate_frac=0.25, measure=measure, incremental=False)
+    key = jax.random.key(23)
+    ref = J.gen_dst(key, cj, n, m, cfg)
+    out = T.gen_dst(None, ct, n, m, _port_cfg(cfg), device="cpu", draws=JaxDraws(key))
+    np.testing.assert_array_equal(np_(out.row_idx), np.asarray(ref.row_idx))
+    np.testing.assert_array_equal(np_(out.col_mask), np.asarray(ref.col_mask))
+    np.testing.assert_allclose(float(out.fitness), float(ref.fitness), atol=1e-6)
+    np.testing.assert_allclose(np_(out.history), np.asarray(ref.history), atol=1e-6)
+
+
+def _tables(count):
+    """``count`` same-shaped factorized tables (same column cardinalities)."""
+    out = []
+    for i in range(count):
+        rng = np.random.default_rng(100 + i)
+        X = np.column_stack([rng.permutation(np.arange(N) % k)
+                             for k in (3, 5, 17, 2, 40, 7)]).astype(float)
+        y = rng.permutation(np.arange(N) % 2).astype(float)
+        out.append((j_factorize(X, y), t_factorize(X, y, device="cpu")))
+    return out
+
+
+def test_gen_dst_batch_equals_solo_and_reference():
+    """D = 3 searches as one: each bit-equal to its solo run (the port's own
+    draws) and to the reference's ``gen_dst_batch`` (its replayed draws),
+    with islands, so migration must stay within each dataset's ring."""
+    tables = _tables(3)
+    cts = [ct for _, ct in tables]
+    cfg = _port_cfg(CFG)
+    gens = [make_generator(s) for s in (0, 1, 2)]
+    batch = T.gen_dst_batch(gens, cts, n, m, cfg, device="cpu")
+    for s, ct, b in zip((0, 1, 2), cts, batch):
+        solo = T.gen_dst(make_generator(s), ct, n, m, cfg, device="cpu")
+        for a, c in zip(solo, b):
+            assert torch.equal(a, c)
+    keys = [jax.random.key(s) for s in (30, 31, 32)]
+    ref = J.gen_dst_batch(keys, [cj for cj, _ in tables], n, m, CFG)
+    out = T.gen_dst_batch([None] * 3, cts, n, m, cfg, device="cpu",
+                          draws=[JaxDraws(k) for k in keys])
+    for r, o in zip(ref, out):
+        np.testing.assert_array_equal(np_(o.row_idx), np.asarray(r.row_idx))
+        np.testing.assert_array_equal(np_(o.col_mask), np.asarray(r.col_mask))
+        np.testing.assert_allclose(float(o.fitness), float(r.fitness), atol=1e-6)
+        np.testing.assert_allclose(np_(o.history), np.asarray(r.history), atol=1e-6)
+        np.testing.assert_allclose(float(o.f_ref), float(r.f_ref), atol=1e-6)
+
+
+def test_gen_dst_batch_rejects_mismatched_inputs(coded):
+    _, ct = coded
+    cfg = T.GenDSTConfig(psi=2, phi=4)
+    short = ct._replace(codes=ct.codes[:300], values=ct.values[:300])
+    with pytest.raises(ValueError, match="share"):
+        T.gen_dst_batch([None, None], [ct, short], n, m, cfg, device="cpu")
+    with pytest.raises(ValueError, match="share"):
+        T.gen_dst_batch([None, None], [ct, ct._replace(target_col=0)], n, m, cfg,
+                        device="cpu")
+    with pytest.raises(ValueError, match="equal-length"):
+        T.gen_dst_batch([None], [ct, ct], n, m, cfg, device="cpu")
+    with pytest.raises(ValueError, match="equal-length"):
+        T.gen_dst_batch([], [], n, m, cfg, device="cpu")
+    with pytest.raises(ValueError):
+        T.gen_dst_batch([None], [ct], n, m, T.GenDSTConfig(phi=7), device="cpu")

@@ -180,3 +180,35 @@ def test_cuda_fused_edges_match_plain(label, P, M, B, fractional, view):
                                         f_ref.reshape(1))
     assert torch.equal(c_k, c_r)
     assert (f_k - f_r).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=requires_cuda)])
+def test_fused_f_ref_per_candidate(device):
+    """One F(D) per candidate, in the candidates' leading shape (as several
+    datasets' searches pass it): each candidate's fitness is the one it gets
+    with its own F(D) as the single value.  On the CPU against the reference
+    candidate by candidate; on the card the kernel against the plain
+    version.  Counts bit-equal, fitness within 1e-6."""
+    if device == "cuda":
+        skip_without_cuda()
+    counts, old, new, applied, cm, _ = _case((3, 4), 5, 16, seed=12)
+    f_ref = (np.random.default_rng(12).random((3, 4)) * 3.0).astype(np.float32)
+    args = _port((counts, old, new, applied, cm, f_ref), device)
+    c_t, f_t = fused_delta_fitness(*args)
+    assert f_t.shape == (3, 4)
+    if device == "cuda":
+        c_r, f_r = fused_delta_fitness_ref(*(a.reshape((12,) + a.shape[2:]) for a in
+                                             _port((counts, old, new, applied, cm, f_ref),
+                                                   device)))
+        assert torch.equal(c_t.reshape(c_r.shape), c_r)
+        assert (f_t.reshape(-1) - f_r).abs().max().item() <= 1e-6
+        with pytest.raises(ValueError, match="f_ref"):
+            fused_delta_fitness_cuda(args[0], args[1], args[2], args[3].float(), args[4],
+                                     args[5][:2].contiguous())
+        return
+    for idx in np.ndindex(3, 4):
+        one = (counts[idx][None], old[idx][None], new[idx][None], applied[idx][None],
+               cm[idx][None], f_ref[idx])
+        c_r, f_r = j_fused_ref(*(jnp.asarray(a) for a in one))
+        np.testing.assert_array_equal(np_(c_t)[idx], np.asarray(c_r)[0])
+        np.testing.assert_allclose(np_(f_t)[idx], np.asarray(f_r)[0], atol=1e-6)

@@ -26,7 +26,7 @@ def test_port_imports_neither_jax_nor_reference():
         "             or k == 'repro' or k.startswith('repro.'))\n"
         "assert len(names) >= 20, names\n"
         "for m in ('models.lm', 'models.ssm', 'configs.zamba2_2p7b', 'launch.serve',\n"
-        "          'automl.batched',\n"
+        "          'automl.batched', 'core.baselines', 'core.strategies',\n"
         "          'kernels.flash_attention.kernel', 'kernels.ssd_scan.kernel'):\n"
         "    assert 'repro_torch.' + m in names, m\n"
         "assert not bad, bad\n"
@@ -54,7 +54,9 @@ def test_entry_points_raise_without_a_card(no_cuda):
     from repro_torch import configs
     from repro_torch.automl.engine import AutoMLConfig, automl_fit
     from repro_torch.convert import lm_params_from_numpy
-    from repro_torch.core.gen_dst import gen_dst
+    from repro_torch.core.baselines import km_dst, mc_dst
+    from repro_torch.core.gen_dst import gen_dst, gen_dst_batch
+    from repro_torch.core.strategies import asp_proxy_dst
     from repro_torch.launch import serve
     from repro_torch.core.measures import factorize
     from repro_torch.core.plan import execute, plan
@@ -63,6 +65,11 @@ def test_entry_points_raise_without_a_card(no_cuda):
     calls = [
         lambda: factorize(X, y),
         lambda: gen_dst(None, coded),
+        lambda: gen_dst_batch([None], [coded]),
+        lambda: mc_dst(None, coded),
+        lambda: km_dst(None, coded),
+        lambda: asp_proxy_dst(None, coded),
+        lambda: execute(plan("mab"), X, y),
         lambda: automl_fit(X, y, config=AutoMLConfig(n_trials=2, rungs=(2,))),
         lambda: execute(plan("gen_dst"), X, y),
         lambda: factorize(X, y, device="cuda"),

@@ -88,3 +88,33 @@ def test_same_subset_same_families(data, backend, seed):
     assert out.intermediate.spec.family == ref.intermediate.spec.family
     assert out.final.spec.family == ref.final.spec.family
     assert abs(out.final.test_acc - ref.final.test_acc) <= 2.0 / len(yt)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("backend", ["loop", "batched"])
+def test_nf_same_subset_same_test_accuracy(data, backend, seed):
+    """SubStrat-NF (no fine-tune; M' scored on the test set's DST columns by
+    ``nf_test_eval``) on the same subset: the same family, and the same test
+    accuracy within 1e-6."""
+    X, y, Xt, yt = data
+    dst = JG.gen_dst(jax.random.key(seed), j_factorize(X, y), None, None,
+                     JG.GenDSTConfig(psi=3, phi=8))
+
+    def jax_subset(key, coded, n, m):
+        return dst
+
+    def port_subset(generator, coded, n, m):
+        return types.SimpleNamespace(row_idx=np.asarray(dst.row_idx),
+                                     col_mask=np.asarray(dst.col_mask),
+                                     fitness=float(dst.fitness))
+
+    ref = j_execute(j_plan(jax_subset, fine_tune=False, sub_automl=JCfg(**AUTOML),
+                           backend=backend),
+                    X, y, key=jax.random.key(seed), X_test=Xt, y_test=yt)
+    out = t_execute(t_plan(port_subset, fine_tune=False, sub_automl=TCfg(**AUTOML),
+                           backend=backend),
+                    X, y, seed=seed, X_test=Xt, y_test=yt, device="cpu")
+    assert "fine_tune_s" not in out.times and "fine_tune_s" not in ref.times
+    assert out.final.spec.family == ref.final.spec.family
+    assert out.final.spec.family == out.intermediate.spec.family
+    assert abs(out.final.test_acc - ref.final.test_acc) <= 1e-6
