@@ -94,6 +94,26 @@ Phases, in order; any failure exits non-zero and prints no result:
    each result bit-equal to its solo run, B1 and B2 launched once per
    generation for the 4, no host wait, timed beside the 4 solo runs
    (solo, batch, batch, solo) and profiled.
+12. The service (``service/``): a ``SubStratServer(batch_dst=True)`` on the
+   card serves five jobs of four tenants at full width (the paper's
+   defaults, batched AutoML backend), all submitted before the first step:
+   D1, two copies of its spec with dataset seeds 11 and 12 (their searches
+   merge into one ``gen_dst_batch``), D1 again (a cache hit that waits for
+   the leader's winner family and fine-tunes it), and D7 (another shape,
+   searched solo).  Checks: every job done with a test accuracy in [0, 1];
+   B1 and B2 launched once per generation for the merged group and once per
+   generation for D7; each merged job's subset equal to its solo run from
+   the same seed; each DST fitness against a plain recomputation (1e-6);
+   one cache hit, three merged searches, a megabatch dispatch spanning
+   jobs; each table coded on the card hashes to its job's fingerprint; the
+   metrics text parses and holds every family the scheduler registers; no
+   kernel built during the run.  Then a sixth job (D1's spec,
+   seed 13) must start from the portfolio with fewer rung-0 trials than a
+   cold job.  Prints each job's phase seconds and spans, the five jobs
+   through ``execute`` one after another against the server's wall time
+   (solo, served, served, solo), a profiled served run (busy share, device
+   operations, B1 + B2's share) and the host waits of each ``step`` of one
+   D1 job under ``torch.cuda.set_sync_debug_mode("warn")``.
 
 Then it prints the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and,
 last, ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -266,8 +286,12 @@ def kernel_device_ms(torch, fn, kernel: str, calls: int = 50):
 def profile_share(torch, run, top: int = 8) -> tuple:
     """Run ``run()`` under torch.profiler; print the device-busy share of the
     wall time and the ``top`` kernels that took the most device time.  Returns the
-    profiler's device events (kernels and copies, summed by name) and the
-    busy share (None where no device time was recorded)."""
+    profiler's device events (kernels and copies, summed by name: ``key``,
+    ``count`` and their device time, which ``dev_us`` reads) and the busy
+    share (None where no device time was recorded).  The device events are
+    read from the profiler's raw results: building its per-operator table
+    (``key_averages``) took over a minute for a served fleet's run."""
+    import types
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -275,8 +299,15 @@ def profile_share(torch, run, top: int = 8) -> tuple:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
-    events = [e for e in prof.key_averages()
-              if getattr(getattr(e, "device_type", None), "name", "") == "CUDA"]
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type().name != "CUDA":
+            continue
+        agg = by_name.setdefault(e.name(), types.SimpleNamespace(
+            key=e.name(), count=0, self_device_time_total=0.0))
+        agg.count += 1
+        agg.self_device_time_total += e.duration_ns() / 1e3
+    events = list(by_name.values())
     busy_us = sum(dev_us(e) for e in events)
     if busy_us <= 0:
         print("  profile: no device time recorded (device busy share not measured)")
@@ -933,6 +964,231 @@ def phase11_strategies(torch, dev, K, coded, X_tr, y_tr, X_te, y_te) -> None:
     print(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 12's fleet: (tenant, job seed) of each of the five jobs, in the order
+# of the tables ``service_tables`` returns
+SERVICE_JOBS = (("alpha", 0), ("beta", 1), ("gamma", 2), ("alpha", 3), ("delta", 4))
+
+
+def service_tables(X_tr, y_tr, X_te, y_te) -> list:
+    """Phase 12's tables at full scale, each (X_train, y_train, X_test,
+    y_test): D1 (the main path's split), two copies of D1's spec with
+    dataset seeds 11 and 12, D1 again, D7; then D1's spec with seed 13 for
+    the warm-started job."""
+    import dataclasses
+    from repro_torch.data.tabular import PAPER_DATASETS, make_dataset, train_test_split
+
+    def table(name, seed=None):
+        spec = PAPER_DATASETS[name]
+        if seed is not None:
+            spec = dataclasses.replace(spec, seed=seed)
+        return train_test_split(*make_dataset(spec, scale=1.0))
+    d1 = (X_tr, y_tr, X_te, y_te)
+    return [d1, table("D1", 11), table("D1", 12), d1, table("D7"), table("D1", 13)]
+
+
+# one line of the Prometheus text exposition: a sample, or a HELP/TYPE comment
+SAMPLE_LINE = r"[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^{}]*\})? (-?[0-9.]+(e[+-]?[0-9]+)?|[+-]Inf|NaN)"
+COMMENT_LINE = r"# (HELP|TYPE) [a-zA-Z_:][a-zA-Z0-9_:]* .*"
+
+
+def phase12_service(torch, dev, K, tables, pl) -> None:
+    """The service on the card: five jobs of four tenants through one
+    ``SubStratServer`` (merged Gen-DST searches, a cache hit that waits for
+    its leader, megabatched rungs), checked against solo runs, plain
+    recomputations and the metrics; then a portfolio warm start, the same
+    jobs through ``execute`` timed against the server, a profiled served run
+    and the host waits of each step of one job."""
+    import collections
+    import re
+    import warnings
+    import numpy as np
+    from repro_torch.core.gen_dst import GenDSTConfig
+    from repro_torch.core.measures import factorize, full_column_entropy, subset_entropy
+    from repro_torch.core.plan import execute
+    from repro_torch.obs import torchprof
+    from repro_torch.service import Scheduler, SubStratServer, dataset_fingerprint
+    t_phase = time.perf_counter()
+    jobs, warm_table = tables[:5], tables[5]
+    psi = dict(pl.strategy_opts).get("cfg", GenDSTConfig()).psi
+
+    def new_server():
+        return SubStratServer(device=dev, batch_dst=True)
+
+    def serve(server):
+        """Submit the five jobs, then wait for each result; the wall time
+        from the first submit to the last result."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids = [server.submit(X, y, tenant=tenant, seed=seed, plan=pl, X_test=Xt, y_test=yt)
+               for (tenant, seed), (X, y, Xt, yt) in zip(SERVICE_JOBS, jobs)]
+        results = [server.result(i) for i in ids]
+        torch.cuda.synchronize()
+        return ids, results, time.perf_counter() - t0
+
+    def solo():
+        """The same five jobs through ``execute``, one after another."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = [execute(pl, X, y, seed=seed, X_test=Xt, y_test=yt, device=dev)
+                   for (_t, seed), (X, y, Xt, yt) in zip(SERVICE_JOBS, jobs)]
+        torch.cuda.synchronize()
+        return results, time.perf_counter() - t0
+
+    walls = []
+    solo_results, wall = solo()
+    walls.append(f"solo {wall:.4f} s")
+    for (tenant, seed), res in zip(SERVICE_JOBS, solo_results):
+        print(f"  execute, {tenant}'s job (seed {seed}): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in res.times.items()))
+
+    # the checked run: launch counters zeroed just before, read just after
+    snap = torchprof.tracing_snapshot()
+    server = new_server()
+    K.reset_launch_counts()
+    ids, results, wall = serve(server)
+    launches = K.launch_counts()
+    walls.append(f"served {wall:.4f} s")
+    stats = server.stats()
+    metrics = stats["metrics"]
+    print(f"service: {len(ids)} jobs of {len({t for t, _s in SERVICE_JOBS})} tenants served in "
+          f"{wall:.4f} s (first submit to last result); launches {launches}; merged_dst "
+          f"{stats['merged_dst']}, merged rungs {stats['merged_rungs']} ({stats['merged_jobs']} "
+          f"job-rungs, {stats['hetero_rungs']} padded, {stats['mixed_rungs']} mixed), solo "
+          f"rungs {stats['solo_rungs']}; cache {stats['cache']}")
+    for jid, ((tenant, seed), res) in zip(ids, zip(SERVICE_JOBS, results)):
+        st = server.poll(jid)
+        job = server.scheduler.jobs[jid]
+        acc = res.final.test_acc
+        if not (st.phase == "done" and acc is not None and math.isfinite(acc)
+                and 0.0 <= acc <= 1.0):
+            fail(f"service job {jid}: phase {st.phase}, test accuracy {acc}")
+        print(f"  job {jid} ({tenant}, seed {seed}): cache_hit {st.cache_hit}, warm_started "
+              f"{st.warm_started}; " + ", ".join(f"{k} {v:.4f}" for k, v in st.phase_times.items())
+              + f"; final {res.final.spec.family} test_acc {acc:.4f}")
+        print("    spans: " + ", ".join(f"{s['name']} {s['attrs']['seconds']:.4f}"
+                                         for s in job.spans))
+    want = 2 * (psi + 1)        # the merged group's generations and D7's
+    if not (launches["masked_histogram"] == launches["fused_delta_fitness"] == want):
+        fail(f"service: B1/B2 launched {launches}, not {want} times each (once per generation "
+             f"for the merged group and for D7)")
+    for j in range(3):
+        got, ref = results[j], solo_results[j]
+        if not (np.array_equal(got.row_idx, ref.row_idx) and np.array_equal(got.col_idx,
+                                                                             ref.col_idx)
+                and got.dst_fitness == ref.dst_fitness):
+            fail(f"service: merged job {ids[j]}'s subset differs from its solo run")
+    st3 = server.poll(ids[3])
+    if not (st3.cache_hit and st3.warm_started
+            and np.array_equal(results[3].row_idx, results[0].row_idx)
+            and results[3].final.spec.family == results[0].intermediate.spec.family):
+        fail("service: the repeat of D1 did not take the cache hit and the leader's family")
+    if not (metrics["cache_hits_total"]["value"] == 1 and stats["merged_dst"] == 3):
+        fail(f"service: cache hits {metrics['cache_hits_total']['value']}, merged_dst "
+             f"{stats['merged_dst']}; expected 1 and 3")
+    if not metrics["dispatches_total"]["values"].get("merged", 0) >= 1:
+        fail(f"service: no megabatch dispatch spanned two jobs: {metrics['dispatches_total']}")
+    coded = {}
+    for j, (X, y, _xt, _yt) in enumerate(jobs):
+        key = id(X)
+        if key not in coded:
+            c = factorize(X, y, device=dev)
+            coded[key] = (c, full_column_entropy(c.codes, c.max_bins).mean().item())
+        c, f_ref = coded[key]
+        # the job hashed its host codes; the table coded on the card hashes the same
+        if dataset_fingerprint(c) != server.scheduler.jobs[ids[j]].fingerprint:
+            fail(f"service job {ids[j]}: the card-coded table's fingerprint differs")
+        mask = torch.zeros(c.num_cols, dtype=torch.bool, device=dev)
+        mask[torch.as_tensor(results[j].col_idx, device=dev)] = True
+        mask[c.target_col] = True
+        rows = torch.as_tensor(results[j].row_idx, device=dev)
+        f_plain = -abs(subset_entropy(c.codes, rows, mask, c.max_bins).item() - f_ref)
+        if not abs(results[j].dst_fitness - f_plain) <= FIT_TOL:
+            fail(f"service job {ids[j]}: DST fitness {results[j].dst_fitness} against its plain "
+                 f"recomputation {f_plain}")
+    print("  merged subsets = solo runs; every DST fitness within "
+          f"{FIT_TOL} of its plain recomputation; fingerprints of the tables coded on the "
+          "card = the jobs'")
+    text = server.metrics_text()
+    for line in text.splitlines():
+        if not (re.fullmatch(SAMPLE_LINE, line) or re.fullmatch(COMMENT_LINE, line)):
+            fail(f"service: metrics line does not parse: {line!r}")
+    typed = set(re.findall(r"^# TYPE (\S+) ", text, re.M))
+    families = set(Scheduler(device=dev).metrics.to_dict()) | {
+        "torch_kernel_builds_total", "kernel_launches_total"}
+    if not families <= typed:
+        fail(f"service: metrics text lacks {sorted(families - typed)}")
+    built = torchprof.new_tracings_since(snap)
+    if built:
+        fail(f"service: kernels built during the served run: {built}")
+    print(f"  metrics: {len(text.splitlines())} lines parse, {len(families)} families present; "
+          f"no kernel built during the run  ({time.perf_counter() - t_phase:.1f} s into phase 12)")
+
+    # a sixth job once four fingerprints have trained: seeded from the portfolio
+    X, y, Xt, yt = warm_table
+    wid = server.submit(X, y, tenant="beta", seed=5, plan=pl, X_test=Xt, y_test=yt)
+    wres = server.result(wid)
+    m = server.scheduler.metrics.to_dict()
+    warm0 = server.poll(wid).leaderboard[0]["trials_done"]
+    cold0 = server.poll(ids[0]).leaderboard[0]["trials_done"]
+    if not (m["portfolio_hits_total"]["value"] == 1 and warm0 < cold0
+            and 0.0 <= wres.final.test_acc <= 1.0):
+        fail(f"service: the warm job took {m['portfolio_hits_total']['value']} portfolios and "
+             f"{warm0} rung-0 trials (cold {cold0})")
+    print(f"  warm start: portfolio of {m['portfolio_seeded_trials_total']['value']:.0f} specs "
+          f"(coverage {m['portfolio_coverage']['value']:.4f}) from "
+          f"{m['experience_datasets']['value']:.0f} datasets; rung 0 {warm0} trials against "
+          f"{cold0} cold; " + ", ".join(f"{k} {v:.4f}"
+                                       for k, v in server.poll(wid).phase_times.items())
+          + f"; final {wres.final.spec.family} test_acc {wres.final.test_acc:.4f}")
+
+    # timed: solo, served (above), served, solo
+    _ids, _res, wall = serve(new_server())
+    walls.append(f"served {wall:.4f} s")
+    _res, wall = solo()
+    walls.append(f"solo {wall:.4f} s")
+    print(f"  five jobs (results on the host): {', '.join(walls)}  [{smi_line()}]  "
+          f"({time.perf_counter() - t_phase:.1f} s into phase 12)")
+
+    print("  profiled served run:")
+    events, _ = profile_share(torch, lambda: serve(new_server()), top=6)
+    ops = sum(e.count for e in events)
+    total_us = sum(dev_us(e) for e in events)
+    ours_us = sum(dev_us(e) for e in events
+                  if "masked_histogram_kernel" in e.key or "fused_delta_fitness_kernel" in e.key)
+    print(f"  served run: {ops} device operations ({ops / len(jobs):.0f} per job); B1 + B2 "
+          f"{ours_us / 1e3:.4f} ms of {total_us / 1e3:.4f} ms device time "
+          f"({ours_us / total_us if total_us else float('nan'):.4f})  "
+          f"({time.perf_counter() - t_phase:.1f} s into phase 12)")
+
+    # host waits of each step of one D1 job, under sync-debug "warn"
+    server = new_server()
+    X, y, Xt, yt = jobs[0]
+    jid = server.submit(X, y, seed=0, plan=pl, X_test=Xt, y_test=yt)
+    job = server.scheduler.jobs[jid]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    steps = []
+    try:
+        while job.active:
+            before = job.phase
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                server.scheduler.step()
+            waits = [w for w in caught if "synchroniz" in str(w.message)]
+            where = collections.Counter(f"{Path(w.filename).name}:{w.lineno}" for w in waits)
+            steps.append((before, job.phase, len(waits), where))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if job.phase != "done":
+        fail(f"service: the sync-debug job ended {job.phase}: {job.error!r}")
+    print(f"  host waits per step of one D1 job ({len(steps)} steps, "
+          f"{sum(s[2] for s in steps)} in all):")
+    for i, (before, after, n_waits, where) in enumerate(steps):
+        print(f"    step {i} ({before} -> {after}): {n_waits}: "
+              + ", ".join(f"{k} x{v}" for k, v in where.most_common()))
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1296,6 +1552,9 @@ def main() -> None:
 
     # --- 11. the other subset strategies and batched Gen-DST ---------------------
     phase11_strategies(torch, dev, K, coded, X_tr, y_tr, X_te, y_te)
+
+    # --- 12. the service: five jobs of four tenants through one server ----------
+    phase12_service(torch, dev, K, service_tables(X_tr, y_tr, X_te, y_te), plan("gen_dst"))
 
     print(json.dumps({"kernels": kernels}))
     print(smi_line())

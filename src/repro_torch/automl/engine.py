@@ -282,10 +282,18 @@ def search_init(
     *,
     config: AutoMLConfig = AutoMLConfig(),
     restrict_family: Optional[str] = None,
+    seed_trials: Optional[Sequence[PipelineSpec]] = None,
     device: DeviceLike = None,
     init_provider: Optional[Callable] = None,
 ) -> SearchState:
-    """Build the evaluation context and sample the initial population."""
+    """Build the evaluation context and sample the initial population.
+
+    ``seed_trials`` is the meta-learning warm start (DESIGN.md §17.4): when
+    given, rung 0 runs only those specs.  The sampled population depends
+    only on ``config.seed``, so a seed spec that matches a sampled one keeps
+    its trial id, and with it the ``(seed, trial_id, rung)`` generator a
+    cold run would use; seed specs outside the population append with fresh
+    ids.  ``seed_trials=None`` (or empty) is the cold path."""
     get_backend(config.backend)   # unknown names raise, listing the registry
     dev = resolve_device(device)
     t_start = time.perf_counter()
@@ -305,6 +313,17 @@ def search_init(
     families = [restrict_family] if restrict_family else list(FAMILIES)
     n_seed_trials = config.n_trials if not restrict_family else max(4, config.n_trials // 4)
     specs = _sample_specs(rng, n_seed_trials, families)
+    alive_ids = list(range(len(specs)))
+    if seed_trials:
+        index = {s: i for i, s in enumerate(specs)}
+        ids = []
+        for s in seed_trials:
+            i = index.get(s)
+            if i is None:
+                specs.append(s)
+                i = index[s] = len(specs) - 1
+            ids.append(i)
+        alive_ids = sorted(set(ids))
 
     ctx = {
         "X_tr": X_tr, "y_tr": y_tr, "X_val": X_val, "y_val": y_val,
@@ -316,7 +335,6 @@ def search_init(
         "variant_cache": {},   # batched backend: (preproc, frac) -> full-width variant
         "init_provider": init_provider,
     }
-    alive_ids = list(range(len(specs)))
     return SearchState(config=config, classes=classes, ctx=ctx, specs=specs,
                        alive_ids=alive_ids, t_start=t_start,
                        trial_rung={i: 0 for i in alive_ids})

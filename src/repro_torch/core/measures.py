@@ -23,6 +23,7 @@ from ..kernels.entropy.ref import entropy_bits64
 __all__ = [
     "CodedDataset",
     "factorize",
+    "host_codes",
     "column_counts",
     "column_entropy_from_counts",
     "column_entropy",
@@ -114,6 +115,20 @@ def factorize(
         target_col=len(cols) - 1 if y is not None else X.shape[1] - 1,
         max_bins=B,
     )
+
+
+def host_codes(coded: CodedDataset) -> tuple:
+    """``(codes, n_bins)`` of ``coded`` as host int32 numpy arrays.
+
+    Free for a dataset on the CPU (views of its tensors); for one on a card,
+    one device-to-host copy of the two packed together."""
+    codes, n_bins = coded.codes, coded.n_bins
+    if codes.device.type == "cpu" and n_bins.device.type == "cpu":
+        return (codes.to(torch.int32).numpy(), n_bins.to(torch.int32).numpy())
+    N, M = codes.shape
+    packed = torch.cat([codes.reshape(-1).to(torch.int32),
+                        n_bins.to(codes.device, torch.int32)]).cpu().numpy()
+    return packed[:N * M].reshape(N, M), packed[N * M:]
 
 
 # ---------------------------------------------------------------------------

@@ -13,9 +13,10 @@ shape, the two AutoML pass budgets and, optionally, the AutoML backend of
 both passes.
 ``execute()`` runs the whole pipeline: factorize → strategy → subset →
 sub-AutoML → restricted fine-tune.  ``Plan.cacheable``, ``Plan.batchable``
-and ``Plan.subset_identity`` say what the service layer may cache and merge;
-the reference's service-tier flags (continuous batching, warm starts) come
-with the service port.
+and ``Plan.subset_identity`` say what the service layer (``service/``) may
+cache and merge; ``Plan.continuous_batching`` and ``Plan.warm_start`` opt a
+served job into the scheduler's cross-rung megabatch and its portfolio warm
+starts.
 """
 from __future__ import annotations
 
@@ -54,6 +55,12 @@ class Plan:
     sub_automl: AutoMLConfig = AutoMLConfig()
     ft_automl: AutoMLConfig = AutoMLConfig(n_trials=6, rungs=(60,))
     backend: Optional[str] = None
+    # opt into the scheduler's standing cross-rung megabatch (DESIGN.md §13);
+    # off, the job merges only with cohorts at its exact (rung_i, epochs)
+    continuous_batching: bool = True
+    # opt into portfolio warm starts from the server's experience store
+    # (DESIGN.md §17); off, the sub-AutoML pass seeds its full cold population
+    warm_start: bool = True
 
     def __post_init__(self):
         if not callable(self.strategy):
@@ -99,6 +106,8 @@ def plan(
     sub_automl: Optional[AutoMLConfig] = None,
     ft_automl: Optional[AutoMLConfig] = None,
     backend: Optional[str] = None,
+    continuous_batching: bool = True,
+    warm_start: bool = True,
     **strategy_opts,
 ) -> Plan:
     """Build a ``Plan``; extra keyword arguments become strategy options."""
@@ -108,13 +117,20 @@ def plan(
     if ft_automl is not None:
         kw["ft_automl"] = ft_automl
     return Plan(strategy=strategy, strategy_opts=_norm_opts(strategy_opts),
-                n=n, m=m, fine_tune=fine_tune, backend=backend, **kw)
+                n=n, m=m, fine_tune=fine_tune, backend=backend,
+                continuous_batching=continuous_batching, warm_start=warm_start, **kw)
 
 
-def plan_from_config(config) -> Plan:
-    """Convert a ``SubStratConfig`` into the equivalent ``Plan``."""
+def plan_from_config(config, dst_fn: Optional[Callable] = None) -> Plan:
+    """Convert a ``SubStratConfig`` (and, deprecated, a bare ``dst_fn``
+    strategy, which ``Scheduler.submit(dst_fn=)`` still takes) into the
+    equivalent ``Plan``."""
+    if dst_fn is not None:
+        strategy, opts = dst_fn, ()
+    else:
+        strategy, opts = "gen_dst", (("cfg", config.resolved_gen()),)
     return Plan(
-        strategy="gen_dst", strategy_opts=(("cfg", config.resolved_gen()),),
+        strategy=strategy, strategy_opts=opts,
         n=config.n, m=config.m, fine_tune=config.fine_tune,
         sub_automl=config.resolved_sub_automl(), ft_automl=config.resolved_ft_automl(),
     )

@@ -13,7 +13,8 @@ The build happens at the first kernel launch, into
 ``build/repro_torch_kernels/<hash of the sources>/`` at the repository root,
 so an edited source is rebuilt and a stale library is never loaded.  A failed
 build raises with the compiler's output; so does a launch that returns a CUDA
-error (``check``).
+error (``check``).  Every source compiled is counted in ``obs/torchprof``
+(``torch_kernel_builds_total``).
 """
 from __future__ import annotations
 
@@ -27,6 +28,8 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+
+from ..obs import torchprof
 
 __all__ = ["BUILD_DIR", "CSRC", "build", "check", "library", "stream"]
 
@@ -104,6 +107,8 @@ def build() -> list[Path]:
         raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{build_log}")
     for tmp, lib in zip(tmps, libs):
         os.replace(tmp, lib)   # atomic: a concurrent loader sees all or nothing
+    for src in sources:
+        torchprof.note_trace(src.stem)
     return libs
 
 

@@ -27,7 +27,10 @@ def test_port_imports_neither_jax_nor_reference():
         "assert len(names) >= 20, names\n"
         "for m in ('models.lm', 'models.ssm', 'configs.zamba2_2p7b', 'launch.serve',\n"
         "          'automl.batched', 'core.baselines', 'core.strategies',\n"
-        "          'kernels.flash_attention.kernel', 'kernels.ssd_scan.kernel'):\n"
+        "          'kernels.flash_attention.kernel', 'kernels.ssd_scan.kernel',\n"
+        "          'obs.metrics', 'obs.torchprof', 'launch.flops', 'meta.features',\n"
+        "          'meta.store', 'meta.portfolio', 'service.fingerprint', 'service.cache',\n"
+        "          'service.scheduler', 'service.server'):\n"
         "    assert 'repro_torch.' + m in names, m\n"
         "assert not bad, bad\n"
         "print(len(names))\n"
@@ -60,6 +63,7 @@ def test_entry_points_raise_without_a_card(no_cuda):
     from repro_torch.launch import serve
     from repro_torch.core.measures import factorize
     from repro_torch.core.plan import execute, plan
+    from repro_torch.service import Scheduler, SubStratServer
     X, y = _small_data()
     coded = factorize(X, y, device="cpu")
     calls = [
@@ -75,6 +79,8 @@ def test_entry_points_raise_without_a_card(no_cuda):
         lambda: factorize(X, y, device="cuda"),
         lambda: serve.main(["--arch", "mamba2-130m"]),
         lambda: lm_params_from_numpy({}, configs.get_arch("mamba2-130m").smoke),
+        lambda: Scheduler(),
+        lambda: SubStratServer(),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
