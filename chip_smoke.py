@@ -114,6 +114,29 @@ Phases, in order; any failure exits non-zero and prints no result:
    (solo, served, served, solo), a profiled served run (busy share, device
    operations, B1 + B2's share) and the host waits of each ``step`` of one
    D1 job under ``torch.cuda.set_sync_debug_mode("warn")``.
+13. The multi-process tier (``service/transport.py``, ``worker.py``,
+   ``wire.py``, ``distributed/checkpoint.py``): a
+   ``DistributedScheduler(batch_dst=True)`` behind ``SubStratHTTPServer``,
+   with a ``ProcessWorkerPool`` of two worker processes on the card (each
+   hello must name ``cuda``) and worker 0 killed at its first task, serves
+   three jobs submitted through ``SubStratHTTPClient`` at full width: D1,
+   D1's spec with dataset seed 11 (its search merges with D1's) and D7.
+   Checks: every job done with a test accuracy in [0, 1]; one worker
+   failure and at least one re-dispatch; each job's subset, DST fitness,
+   winner specs and trial accuracies equal to the same jobs on an
+   in-process ``Scheduler`` in the same call (bit-equal, else within
+   2/N_val with the differing parts named); B1 and B2 launched 62 times
+   each in the front end (the merged D1 pair's generations and D7's);
+   a streamed leaderboard of at least 2 entries; ``/v1/metrics`` parses and
+   holds the transport's families; the killed task's job shows a retry
+   dispatch with the worker's deserialize, eval and serialize children.
+   Then a checkpointed front end stops after step 2 and a fresh one on a
+   new pool resumes it to the in-process results.  Prints the workers' boot
+   seconds, each remote dispatch's bytes and codec times against the
+   worker's eval seconds and the front end's dispatch span, the served wall
+   against in-process (in-process, HTTP, HTTP, in-process) and the host
+   waits of each front-end step of one D1 job (sync-debug "warn").  The
+   two workers and the front end share the one card.
 
 Then it prints the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and,
 last, ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -1189,6 +1212,251 @@ def phase12_service(torch, dev, K, tables, pl) -> None:
     print(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 13's jobs: D1 (the main path's split), D1's spec with dataset seed 11
+# (its search merges with D1's) and D7, as (tenant, seed); D1's and seed 11's
+# are phase 12's first two
+TRANSPORT_JOBS = (("alpha", 0), ("beta", 1), ("delta", 4))
+# the multi-process tier's families in its metrics text (DESIGN.md §14.5)
+TRANSPORT_FAMILIES = ("remote_tasks_total", "redispatched_tasks_total",
+                      "heartbeat_misses_total", "worker_failures_total")
+
+
+def _same_results(got, want) -> list:
+    """The parts of two ``SubStratResult``s that differ: subset, fitness,
+    winner specs and trial accuracies (empty if all are bit-equal)."""
+    import numpy as np
+    diff = []
+    if not (np.array_equal(got.row_idx, want.row_idx)
+            and np.array_equal(got.col_idx, want.col_idx)):
+        diff.append("subset")
+    if got.dst_fitness != want.dst_fitness:
+        diff.append("dst_fitness")
+    for name in ("intermediate", "final"):
+        g, w = getattr(got, name), getattr(want, name)
+        if g.spec != w.spec:
+            diff.append(f"{name} spec")
+        if [v for _, v in g.trials] != [v for _, v in w.trials]:
+            diff.append(f"{name} trial accuracies")
+        if g.test_acc != w.test_acc:
+            diff.append(f"{name} test_acc")
+    return diff
+
+
+def _trial_gap(got, want, n_train: int) -> float:
+    """The largest trial-accuracy gap of two results' AutoML passes, in units
+    of 2/N_val of each pass (a gap <= 1 is within tolerance); inf if the two
+    ran other trials.  The sub pass's N_val is taken from the subset's rows,
+    the fine-tune's from the ``n_train`` rows of the table."""
+    gap = 0.0
+    for name, n_rows in (("intermediate", len(want.row_idx)), ("final", n_train)):
+        g, w = getattr(got, name), getattr(want, name)
+        if [s for s, _ in g.trials] != [s for s, _ in w.trials]:
+            return float("inf")
+        n_val = max(1, int(0.2 * n_rows))
+        for (_s, a), (_t, b) in zip(g.trials, w.trials):
+            gap = max(gap, abs(a - b) / (2.0 / n_val))
+    return gap
+
+
+def phase13_transport(torch, dev, K, jobs, pl) -> None:
+    """The multi-process tier on the card: three jobs through a
+    ``DistributedScheduler`` behind the HTTP front end, with two worker
+    processes on the card and worker 0 killed at its first task; checked
+    against the in-process scheduler, then a checkpointed front end resumed
+    by a fresh one with a new pool; prints boot seconds, wire bytes and
+    codec times per task, worker eval against dispatch spans, the served
+    wall against in-process (in-process, HTTP, HTTP, in-process) and the
+    host waits per front-end step."""
+    import collections
+    import re
+    import shutil
+    import warnings
+    from repro_torch.core.gen_dst import GenDSTConfig
+    from repro_torch.service import (
+        DistributedScheduler, ProcessWorkerPool, Scheduler, SubStratHTTPClient,
+        SubStratHTTPServer, SubStratServer,
+    )
+    t_phase = time.perf_counter()
+    psi = dict(pl.strategy_opts).get("cfg", GenDSTConfig()).psi
+    kill = ((0, 0, "kill", 0.0),)          # worker 0 exits at its first task
+
+    def submit_all(submit):
+        return [submit(X, y, tenant=tenant, seed=seed, plan=pl, X_test=Xt, y_test=yt)
+                for (tenant, seed), (X, y, Xt, yt) in zip(TRANSPORT_JOBS, jobs)]
+
+    def in_process():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sched = Scheduler(batch_dst=True, device=dev)
+        ids = submit_all(sched.submit)
+        sched.run()
+        torch.cuda.synchronize()
+        return [sched.jobs[i].result for i in ids], time.perf_counter() - t0
+
+    def over_http(pool):
+        """The three jobs through a fresh front end on ``pool``, over HTTP:
+        the wall from the first submit to the last result.  The caller
+        closes the returned HTTP server."""
+        sched = DistributedScheduler(pool, batch_dst=True, stall_timeout_s=120.0, device=dev)
+        http = SubStratHTTPServer(SubStratServer(scheduler=sched)).start()
+        client = SubStratHTTPClient(http.url)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids = submit_all(client.submit)
+        board = list(client.stream_leaderboard(ids[0]))
+        results = [client.result(i) for i in ids]
+        wall = time.perf_counter() - t0
+        return http, sched, client, ids, board, results, wall
+
+    def check_against(label, results, want):
+        for (tenant, seed), got, ref, table in zip(TRANSPORT_JOBS, results, want, jobs):
+            acc = got.final.test_acc
+            if not (acc is not None and math.isfinite(acc) and 0.0 <= acc <= 1.0):
+                fail(f"transport ({label}): {tenant}'s job test accuracy {acc}")
+            diff = _same_results(got, ref)
+            if diff:
+                # not bit-equal: held within 2/N_val, and said so
+                gap = _trial_gap(got, ref, len(table[1]))
+                print(f"  {label}: {tenant}'s job NOT bit-equal to in-process ({diff}); "
+                      f"largest trial gap {gap:.3f} x 2/N_val")
+                if "subset" in diff or "dst_fitness" in diff or not gap <= 1.0:
+                    fail(f"transport ({label}): {tenant}'s job differs from in-process: {diff}")
+        print(f"  {label}: every job done, test accuracy in [0, 1]; subsets, fitness, winner "
+              f"specs and trial accuracies checked against in-process")
+
+    walls = []
+    want, wall = in_process()
+    walls.append(f"in-process {wall:.4f} s")
+
+    # --- the checked run: two workers, worker 0 killed, over HTTP -------------
+    t0 = time.perf_counter()
+    pool_a = ProcessWorkerPool(2, device=dev, fault_events=kill)
+    boot = time.perf_counter() - t0
+    if pool_a.device.type != "cuda" or sorted(pool_a.boot_s) != [0, 1]:
+        fail(f"transport: pool on {pool_a.device}, hellos from {sorted(pool_a.boot_s)}")
+    print(f"  pool of 2 workers on {pool_a.device} (each hello names it): boot "
+          + ", ".join(f"worker {w} {s:.3f} s" for w, s in sorted(pool_a.boot_s.items()))
+          + f" (spawn, import torch, CUDA context); {boot:.3f} s in all  [{smi_line()}]")
+    K.reset_launch_counts()
+    http, sched, client, ids, board, results, wall = over_http(pool_a)
+    launches = K.launch_counts()
+    walls.append(f"HTTP, worker 0 killed {wall:.4f} s")
+    check_against("HTTP, worker 0 killed", results, want)
+    stats = client.stats()
+    tr = stats["transport"]
+    print(f"  transport {tr}; launches in the front end {launches}")
+    if not (tr["worker_failures"] == 1 and tr["redispatched_tasks"] >= 1):
+        fail(f"transport: the kill was not recovered as one failure and a re-dispatch: {tr}")
+    want_launches = 2 * (psi + 1)     # the merged D1 pair's generations and D7's
+    if not (launches["masked_histogram"] == launches["fused_delta_fitness"] == want_launches):
+        fail(f"transport: B1/B2 launched {launches} in the front end, not {want_launches} each")
+    if len(board) < 2:
+        fail(f"transport: the streamed leaderboard had {len(board)} entries")
+    text = client.metrics()
+    for line in text.splitlines():
+        if not (re.fullmatch(SAMPLE_LINE, line) or re.fullmatch(COMMENT_LINE, line)):
+            fail(f"transport: metrics line does not parse: {line!r}")
+    typed = set(re.findall(r"^# TYPE (\S+) ", text, re.M))
+    if not set(TRANSPORT_FAMILIES) <= typed:
+        fail(f"transport: metrics text lacks {sorted(set(TRANSPORT_FAMILIES) - typed)}")
+    retried = None
+    for jid in ids:
+        spans = client.trace(jid)["spans"]
+        retry = [s for s in spans if s["name"] == "dispatch" and s["attempt"] >= 1]
+        if retry:
+            kids = {s["name"] for s in spans if s.get("parent_id") == retry[0]["span_id"]}
+            if not {"deserialize", "eval", "serialize"} <= kids:
+                fail(f"transport: job {jid}'s retry dispatch has children {sorted(kids)}")
+            retried = jid
+    if retried is None:
+        fail("transport: no job's trace shows a retry dispatch")
+    print(f"  leaderboard of job {ids[0]}: {len(board)} streamed entries; metrics parse "
+          f"and hold {', '.join(TRANSPORT_FAMILIES)}; job {retried}'s trace has a retry "
+          f"dispatch with deserialize, eval and serialize children")
+    http.close()
+    # per dispatch (each task once, though its spans are on every job it carried)
+    seen = {}
+    for jid in ids:
+        for s in sched.jobs[jid].spans:
+            if s["name"] in ("dispatch", "deserialize", "eval", "serialize"):
+                seen.setdefault(s["span_id"], s)
+    children = collections.defaultdict(dict)
+    for s in seen.values():
+        if s["name"] != "dispatch":
+            children[s["parent_id"]][s["name"]] = s["t1"] - s["t0"]
+    print("  remote dispatches (task bytes, front-end encode ms; worker decode ms, eval s, "
+          "encode ms; reply bytes, front-end decode ms; front-end dispatch span s):")
+    for s in sorted(seen.values(), key=lambda s: s["t0"]):
+        if s["name"] != "dispatch":
+            continue
+        a, c = s["attrs"], children.get(s["span_id"], {})
+        print(f"    worker {a['worker']} attempt {s['attempt']} {a['outcome']}: "
+              f"{a['bytes']} B, {a['encode_s'] * 1e3:.3f} ms; "
+              + (f"{c['deserialize'] * 1e3:.3f} ms, {c['eval']:.4f} s, "
+                 f"{c['serialize'] * 1e3:.3f} ms; {a['reply_bytes']} B, "
+                 f"{a['decode_s'] * 1e3:.3f} ms; " if "eval" in c else "lost; ")
+              + f"{s['t1'] - s['t0']:.4f} s")
+
+    # --- checkpoint and resume: stop after step 2, resume on a new pool -------
+    ckpt = ROOT / "build" / "phase13_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    first = DistributedScheduler(pool_a, batch_dst=True, ckpt_dir=ckpt, device=dev)
+    submit_all(first.submit)
+    first.step()
+    first.step()
+    pool_a.close()          # the front end and its workers go down together
+    del first
+    pool_b = ProcessWorkerPool(2, device=dev)
+    resumed = DistributedScheduler(pool_b, batch_dst=True, ckpt_dir=ckpt, device=dev)
+    step = resumed.resume()
+    if step != 2:
+        fail(f"transport: resumed at step {step}, not 2")
+    resumed.run()
+    check_against("checkpointed at step 2, resumed on a new pool",
+                  [resumed.jobs[i].result for i in sorted(resumed.jobs)], want)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    print(f"  new pool boot " + ", ".join(f"worker {w} {s:.3f} s"
+                                           for w, s in sorted(pool_b.boot_s.items()))
+          + f"  ({time.perf_counter() - t_phase:.1f} s into phase 13)")
+
+    # --- timed: in-process (above), HTTP (above), HTTP, in-process ------------
+    http, *_rest, wall = over_http(pool_b)
+    http.close()
+    walls.append(f"HTTP {wall:.4f} s")
+    _r, wall = in_process()
+    walls.append(f"in-process {wall:.4f} s")
+    print(f"  three jobs, first submit to last result: {', '.join(walls)}  [{smi_line()}]")
+
+    # host waits of each front-end step of one D1 job, under sync-debug "warn"
+    sched = DistributedScheduler(pool_b, batch_dst=True, device=dev)
+    (tenant, seed), (X, y, Xt, yt) = TRANSPORT_JOBS[0], jobs[0]
+    job = sched.jobs[sched.submit(X, y, tenant=tenant, seed=seed, plan=pl, X_test=Xt,
+                                  y_test=yt)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    steps = []
+    try:
+        while job.active:
+            before = job.phase
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                sched.step()
+            waits = [w for w in caught if "synchroniz" in str(w.message)]
+            where = collections.Counter(f"{Path(w.filename).name}:{w.lineno}" for w in waits)
+            steps.append((before, job.phase, len(waits), where))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        pool_b.close()
+    if job.phase != "done":
+        fail(f"transport: the sync-debug job ended {job.phase}: {job.error!r}")
+    print(f"  host waits per front-end step of one D1 job ({len(steps)} steps, "
+          f"{sum(s[2] for s in steps)} in all):")
+    for i, (before, after, n_waits, where) in enumerate(steps):
+        print(f"    step {i} ({before} -> {after}): {n_waits}: "
+              + ", ".join(f"{k} x{v}" for k, v in where.most_common()))
+    print(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1554,7 +1822,11 @@ def main() -> None:
     phase11_strategies(torch, dev, K, coded, X_tr, y_tr, X_te, y_te)
 
     # --- 12. the service: five jobs of four tenants through one server ----------
-    phase12_service(torch, dev, K, service_tables(X_tr, y_tr, X_te, y_te), plan("gen_dst"))
+    tables = service_tables(X_tr, y_tr, X_te, y_te)
+    phase12_service(torch, dev, K, tables, plan("gen_dst"))
+
+    # --- 13. the multi-process tier: workers, a kill, HTTP, a resume ------------
+    phase13_transport(torch, dev, K, [tables[0], tables[1], tables[4]], plan("gen_dst"))
 
     print(json.dumps({"kernels": kernels}))
     print(smi_line())

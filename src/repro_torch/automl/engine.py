@@ -23,6 +23,11 @@ What differs:
   d, n_classes) -> params or None`` replaces a trial's drawn initial params.
 
 The paper's fine-tuning step (§3.4) maps to ``restrict_family=...``.
+``search_snapshot``/``search_restore(snap, device=)`` carry a search across
+processes (DESIGN.md §14.4): the snapshot drops the device, its label
+mirrors and ``init_provider``, and a restored search rebuilds them on the
+device it resolves; the winner's params, host arrays if they crossed the
+wire, go to the search's device in ``search_result``.
 """
 from __future__ import annotations
 
@@ -42,7 +47,8 @@ __all__ = [
     "apply_pipeline", "sh_promote", "SearchState", "search_init",
     "search_cohort", "search_record", "search_result", "search_eval_rung",
     "TrialCohort", "search_trial_cohort", "register_backend", "get_backend",
-    "available_backends", "BACKENDS",
+    "available_backends", "BACKENDS", "params_to", "search_snapshot",
+    "search_restore",
 ]
 
 PREPROCS = ("none", "standardize", "minmax")
@@ -394,6 +400,19 @@ def search_trial_cohort(state: SearchState) -> TrialCohort:
                        rungs, steps)
 
 
+def params_to(params, device):
+    """``params`` with every host numpy leaf a tensor on ``device``: params
+    that crossed the wire come back as numpy.  Tensors, lazy thunks and
+    None pass through."""
+    if isinstance(params, dict):
+        return {k: params_to(v, device) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(params_to(v, device) for v in params)
+    if isinstance(params, np.ndarray):
+        return torch.as_tensor(params, device=device)
+    return params
+
+
 def search_record(state: SearchState, scored, positions, rung_time: float) -> None:
     """Record one evaluated rung: log trials, promote survivors, advance."""
     config = state.config
@@ -422,9 +441,11 @@ def search_result(state: SearchState, X_test: Optional[np.ndarray] = None,
     best_spec, best_vacc, best_params, best_fidx, best_stats = live[best_i]
     if callable(best_params):   # the batched backend unpads params lazily
         best_params = best_params()
+    # a rung evaluated in another process (or restored) brings host arrays
+    dev = state.ctx["device"]
+    best_params = params_to(best_params, dev)
     test_acc = None
     if X_test is not None:
-        dev = state.ctx["device"]
         Xt = apply_pipeline(best_spec, best_stats, best_fidx,
                             np.asarray(X_test, np.float32), dev)
         yt = torch.as_tensor(np.searchsorted(state.classes, np.asarray(y_test)),
@@ -435,6 +456,102 @@ def search_result(state: SearchState, X_test: Optional[np.ndarray] = None,
         time_s=time.perf_counter() - state.t_start, n_trials=state.n_done,
         feat_idx=best_fidx, pre_stats=best_stats, trials=state.trials_log,
         rung_times=state.rung_times, backend=state.config.backend,
+    )
+
+
+# context keys that cross process boundaries; the device, its label mirrors,
+# the test seam and the per-backend caches are rebuilt on restore
+_CTX_SNAPSHOT_KEYS = ("X_tr", "y_tr", "X_val", "y_val", "n_classes", "seed",
+                      "budget_active")
+
+
+def _materialize_scored(scored):
+    """Resolve the batched backend's lazy param thunks so a scored rung can
+    cross a process boundary (DESIGN.md §14.2)."""
+    out = []
+    for spec, vacc, params, fidx, stats in scored:
+        if callable(params):
+            params = params()
+        out.append((spec, float(vacc), params, fidx, stats))
+    return out
+
+
+def search_snapshot(state: SearchState) -> dict:
+    """A wire-serializable snapshot of one search (DESIGN.md §14.4).
+
+    Captures the config, the sampled population and survivor cursors, the
+    trial log and the raw evaluation data.  The device, its label mirrors
+    and the pipe/variant caches are dropped and rebuilt by
+    ``search_restore``; lazy param thunks in the last scored rung are
+    materialized.  A search with an ``init_provider`` (the tests' seam, a
+    callable) cannot be snapshotted."""
+    from ..service.wire import WireError
+    ctx = state.ctx
+    if ctx["init_provider"] is not None:
+        raise WireError("search_snapshot: a search with an init_provider (a "
+                        "callable) is not wire-serializable")
+    return {
+        "config": state.config,
+        "classes": np.asarray(state.classes),
+        "specs": list(state.specs),
+        "alive_ids": [int(i) for i in state.alive_ids],
+        "rung_i": int(state.rung_i),
+        "live": _materialize_scored(state.live),
+        "trials_log": [(s, float(v)) for s, v in state.trials_log],
+        "rung_times": [float(t) for t in state.rung_times],
+        "n_done": int(state.n_done),
+        "stopped": bool(state.stopped),
+        "trial_rung": {int(k): int(v) for k, v in state.trial_rung.items()},
+        "elapsed_s": time.perf_counter() - state.t_start,
+        "ctx": {k: ctx[k] for k in _CTX_SNAPSHOT_KEYS},
+    }
+
+
+def restore_ctx(shipped: dict, device: DeviceLike = None) -> dict:
+    """An evaluation context rebuilt on ``device`` (default CUDA) from its
+    shipped keys (``_CTX_SNAPSHOT_KEYS``): the device, its label mirrors,
+    the test seam and empty caches."""
+    dev = resolve_device(device)
+    ctx = dict(shipped)
+    ctx["X_tr"] = np.asarray(ctx["X_tr"], np.float32)
+    ctx["X_val"] = np.asarray(ctx["X_val"], np.float32)
+    ctx["y_tr"] = np.asarray(ctx["y_tr"])
+    ctx["y_val"] = np.asarray(ctx["y_val"])
+    ctx["y_tr_t"] = torch.as_tensor(ctx["y_tr"], dtype=torch.int64, device=dev)
+    ctx["y_val_t"] = torch.as_tensor(ctx["y_val"], dtype=torch.int64, device=dev)
+    ctx["n_classes"] = int(ctx["n_classes"])
+    ctx["seed"] = int(ctx["seed"])
+    ctx["device"] = dev
+    ctx["budget_active"] = bool(ctx["budget_active"])
+    ctx["pipe_cache"] = {}
+    ctx["variant_cache"] = {}
+    ctx["init_provider"] = None
+    return ctx
+
+
+def search_restore(snap: dict, device: DeviceLike = None) -> SearchState:
+    """Rebuild a ``SearchState`` from a ``search_snapshot`` payload on
+    ``device`` (default CUDA).
+
+    The restored search continues from the rung boundary the snapshot
+    captured; finishing it gives the uninterrupted run's winner and trial
+    accuracies (tested across a process boundary in
+    ``tests/test_torch_wire.py``)."""
+    ctx = restore_ctx(snap["ctx"], device)
+    return SearchState(
+        config=snap["config"],
+        classes=np.asarray(snap["classes"]),
+        ctx=ctx,
+        specs=list(snap["specs"]),
+        alive_ids=[int(i) for i in snap["alive_ids"]],
+        t_start=time.perf_counter() - float(snap["elapsed_s"]),
+        rung_i=int(snap["rung_i"]),
+        live=[tuple(t) for t in snap["live"]],
+        trials_log=[tuple(t) for t in snap["trials_log"]],
+        rung_times=list(snap["rung_times"]),
+        n_done=int(snap["n_done"]),
+        stopped=bool(snap["stopped"]),
+        trial_rung={int(k): int(v) for k, v in snap["trial_rung"].items()},
     )
 
 

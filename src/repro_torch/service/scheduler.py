@@ -59,15 +59,18 @@ bit-identical to its cold-run counterpart (the portfolio filters the
 deterministically sampled population, preserving trial ids).  Cold starts
 and ``Plan(warm_start=False)`` jobs run the unchanged full population.
 
-The port of the JAX package's ``service/scheduler.py`` (its in-process half:
-``snapshot``/``load_snapshot`` and the checkpoint methods come with the wire
-format).  One scheduler runs every job on one device (``device=``, CUDA by
-default, raising without a card).  A job carries an int ``seed`` where the
+The port of the JAX package's ``service/scheduler.py``.  One scheduler runs
+every job on one device (``device=``, CUDA by default, raising without a
+card); ``transport.DistributedScheduler`` ships its rung dispatches to
+worker processes through the ``_eval_groups`` hook.  A job carries an int ``seed`` where the
 reference carries a key: its strategy draws from ``make_generator(seed,
 device)`` and its subset patch from ``make_generator(seed ^ 0x5AB5)``, as
 ``core/plan.execute`` draws them, so a job served alone equals ``execute``
 on the same seed and device.  Each span's seconds end with its phase's
-results on the host.
+results on the host.  ``snapshot``/``load_snapshot`` carry the whole
+scheduler through the wire format with ``seed`` in place of the reference's
+key; a loaded snapshot's tables, searches and models go to this scheduler's
+device.
 """
 from __future__ import annotations
 
@@ -80,8 +83,8 @@ import numpy as np
 import torch
 
 from ..automl.engine import (
-    SearchState, search_eval_rung, search_init, search_record, search_result,
-    search_trial_cohort,
+    SearchState, params_to, search_eval_rung, search_init, search_record,
+    search_restore, search_result, search_snapshot, search_trial_cohort,
 )
 from ..core.measures import CodedDataset, factorize, host_codes
 from ..core.plan import Plan, plan_from_config
@@ -395,6 +398,20 @@ class Scheduler:
             job.trace_id, name, w0, time.time(),
             attrs={"seconds": float(seconds), **attrs}))
         job.times[key] = job.times.get(key, 0.0) + float(seconds)
+
+    def _fold_task_spans(self, group: Sequence[SubStratJob],
+                         spans: Sequence[dict]) -> None:
+        """Copy one remote dispatch's transport/worker spans onto every
+        participating job's trace.  The copies are re-tagged with the job's
+        trace id for single-timeline rendering; span/parent ids are stored
+        explicitly in each record, so the dispatch→queue_wait→eval tree
+        survives the re-tag intact."""
+        for job in group:
+            for sp in spans:
+                cp = dict(sp)
+                cp["trace_id"] = job.trace_id
+                cp["attrs"] = dict(sp["attrs"])
+                job.spans.append(cp)
 
     def _factorize(self, job: SubStratJob) -> None:
         t0 = time.perf_counter()
@@ -976,3 +993,120 @@ class Scheduler:
             "poisoned_packs": self.poisoned_packs,
             "metrics": self.metrics.to_dict(),
         }
+
+    # -- checkpoint / restore (DESIGN.md §14.5) ------------------------------
+
+    _COUNTER_FIELDS = ("merged_rungs", "merged_jobs", "hetero_rungs",
+                       "mixed_rungs", "solo_rungs", "merged_dst",
+                       "poisoned_packs")
+    _JOB_PLAIN_FIELDS = ("job_id", "tenant", "X", "y", "X_test", "y_test",
+                         "phase", "cache_hit", "warm_family", "fingerprint",
+                         "cache_key", "row_idx", "col_mask", "col_idx",
+                         "dst_fitness", "y_sub", "intermediate", "final",
+                         "result", "trace_id")
+
+    def snapshot(self) -> bytes:
+        """Serialize the whole scheduler — every job (including mid-search
+        ``SearchState``s), the DST cache, the merge counters, the metrics
+        and the experience store — to one versioned wire payload.  A fresh
+        scheduler that ``load_snapshot``s it resumes in-progress jobs
+        bit-identically (rung-boundary granularity: ``step()`` snapshots
+        land between rungs)."""
+        from . import wire
+        jobs = []
+        for job in self.jobs.values():
+            d = {f: getattr(job, f) for f in self._JOB_PLAIN_FIELDS}
+            d["seed"] = job.seed
+            d["plan"] = job.plan
+            d["coded"] = job.coded
+            d["times"] = dict(job.times)
+            d["leaderboard"] = list(job.leaderboard)
+            d["spans"] = list(job.spans)
+            d["search"] = (search_snapshot(job.search)
+                           if job.search is not None else None)
+            d["error"] = None if job.error is None else repr(job.error)
+            jobs.append(d)
+        payload = {
+            "jobs": jobs,
+            "next_id": self._next_id,
+            "counters": {k: getattr(self, k) for k in self._COUNTER_FIELDS},
+            "cache": self.cache.items(),
+            "metrics": self.metrics.state_dict(),
+            # the experience store rides every snapshot (wire version 3) so
+            # a restored server warm-starts exactly like the one that died
+            "experience": self.experience.state_dict(),
+        }
+        return wire.dumps(payload, kind="scheduler")
+
+    def _on_device(self, result):
+        """An ``AutoMLResult`` (or a ``SubStratResult`` of two) read from
+        the wire, with its model params on this scheduler's device."""
+        if result is None:
+            return None
+        if isinstance(result, SubStratResult):
+            return dataclasses.replace(
+                result, final=self._on_device(result.final),
+                intermediate=self._on_device(result.intermediate))
+        return dataclasses.replace(result,
+                                   params=params_to(result.params, self.device))
+
+    def load_snapshot(self, data: bytes) -> None:
+        """Restore state captured by ``snapshot`` (replaces current state).
+        Each job's coded table, search and models go to this scheduler's
+        device."""
+        from . import wire
+        payload = wire.loads(data)
+        self.jobs.clear()
+        for d in payload["jobs"]:
+            coded = d["coded"]
+            if coded is not None:   # host arrays off the wire
+                coded = coded._replace(
+                    codes=torch.as_tensor(coded.codes),
+                    values=torch.as_tensor(coded.values),
+                    n_bins=torch.as_tensor(coded.n_bins)).to(self.device)
+            job = SubStratJob(
+                job_id=d["job_id"], tenant=d["tenant"], X=d["X"], y=d["y"],
+                seed=int(d["seed"]), plan=d["plan"], coded=coded,
+                X_test=d["X_test"], y_test=d["y_test"])
+            for f in self._JOB_PLAIN_FIELDS:
+                setattr(job, f, d[f])
+            job.intermediate = self._on_device(job.intermediate)
+            job.final = self._on_device(job.final)
+            job.result = self._on_device(job.result)
+            job.times = dict(d["times"])
+            job.leaderboard = list(d["leaderboard"])
+            job.spans = list(d.get("spans", []))
+            job.search = (search_restore(d["search"], self.device)
+                          if d["search"] is not None else None)
+            # the original exception class is gone; keep its repr visible
+            job.error = (None if d["error"] is None
+                         else RuntimeError(d["error"]))
+            self.jobs[job.job_id] = job
+        self._next_id = payload["next_id"]
+        for k, v in payload["counters"].items():
+            setattr(self, k, v)
+        for key, entry in payload["cache"]:
+            self.cache.put(key, entry)
+        # restore first, then re-register: get-or-create re-attaches the
+        # m_* handles to the restored families (bit-identical round trip)
+        self.metrics.load_state(payload["metrics"])
+        self._register_metrics()
+        self.experience.load_state(payload["experience"])
+
+    def save_checkpoint_to(self, ckpt_dir, step: int, *, keep: int = 3) -> None:
+        """Write ``snapshot()`` as an atomic on-disk checkpoint
+        (``distributed/checkpoint.py`` manifest + COMMIT protocol)."""
+        from ..distributed.checkpoint import save_checkpoint
+        blob = np.frombuffer(self.snapshot(), dtype=np.uint8)
+        save_checkpoint(ckpt_dir, step, {"wire": blob}, keep=keep)
+
+    def restore_checkpoint(self, ckpt_dir) -> Optional[int]:
+        """Restore the newest complete checkpoint under ``ckpt_dir``;
+        returns its step, or None if no commit exists."""
+        from ..distributed.checkpoint import restore_latest_untyped
+        found = restore_latest_untyped(ckpt_dir)
+        if found is None:
+            return None
+        leaves, step = found
+        self.load_snapshot(leaves[0].tobytes())
+        return step

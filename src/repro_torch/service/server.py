@@ -13,9 +13,10 @@ empty bucket gets ``RateLimited`` — carrying ``retry_after_s`` — which the
 HTTP transport maps to ``429`` with a ``Retry-After`` header.  Buckets use
 an injectable clock so the policy is deterministic under test.
 
-This is deliberately in-process (one Python heap, one device): the
-cross-process transport is an open ROADMAP item, and nothing here assumes
-more than the scheduler's cooperative ``step()`` loop.
+Nothing here assumes more than the scheduler's cooperative ``step()``
+loop: the same server fronts the in-process ``Scheduler`` or a
+``transport.DistributedScheduler`` whose rungs run in worker processes, and
+``transport.SubStratHTTPServer`` puts HTTP in front of it.
 
 The port of the JAX package's ``service/server.py``: jobs take an int
 ``seed`` where the reference takes a key, and the server's scheduler runs

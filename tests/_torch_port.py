@@ -5,10 +5,14 @@ and ``port_lm_params`` carry a reference LM config and its params across.  ``Jax
 draw provider for ``repro_torch.core.gen_dst`` that replays the JAX
 package's own key splits (``repro/core/gen_dst.py``), so the port's GA runs
 on exactly the random numbers the reference's GA draws from the same key.
+``np_strategy_registered`` registers one deterministic numpy subset strategy
+in both packages, so a served fleet gets the same subsets from each.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
+import types
 
 import jax
 import jax.numpy as jnp
@@ -194,3 +198,60 @@ class JaxKey:
         """``_init_population(key, ..., phi)``'s draws, one island."""
         assert I == 1
         return to_port([init_draws(self.key, phi, N, M, n)])
+
+
+# ---------------------------------------------------------------------------
+# one deterministic numpy subset strategy, registered in both packages
+# ---------------------------------------------------------------------------
+
+
+def np_subset(codes, n_bins, target_col, n, m):
+    """Rows ranked by a hash of their codes, the m - 1 columns with the most
+    bins and the target; fitness -|H(d) - H(D)| over the kept columns in
+    float64.  A pure function of the table, so cacheable."""
+    N, M = codes.shape
+    n = int(np.sqrt(N)) if n is None else n
+    m = max(2, int(0.25 * M)) if m is None else m
+    score = (codes.astype(np.int64) * (np.arange(M) * 7919 + 1)).sum(1) % 1009
+    rows = np.argsort(score, kind="stable")[:n].astype(np.int32)
+    feats = [j for j in np.argsort(-n_bins, kind="stable") if j != target_col][:m - 1]
+    mask = np.zeros(M, bool)
+    mask[feats] = True
+    mask[target_col] = True
+
+    def entropy(block):
+        h = []
+        for j in np.flatnonzero(mask):
+            p = np.bincount(block[:, j]) / len(block)
+            p = p[p > 0]
+            h.append(-(p * np.log2(p)).sum())
+        return float(np.mean(h))
+    return types.SimpleNamespace(row_idx=rows, col_mask=mask,
+                                 fitness=-abs(entropy(codes[rows]) - entropy(codes)))
+
+
+def j_np(key, coded, n, m):
+    return np_subset(np.asarray(coded.codes), np.asarray(coded.n_bins), coded.target_col, n, m)
+
+
+def t_np(generator, coded, n, m):
+    from repro_torch.core.measures import host_codes
+    codes, n_bins = host_codes(coded)
+    return np_subset(codes, n_bins, coded.target_col, n, m)
+
+
+@contextlib.contextmanager
+def np_strategy_registered(name: str):
+    """``np_subset`` registered under ``name`` in both packages (batchable and
+    cacheable), removed on exit: the registries are process-global and other
+    test files count them."""
+    from repro.core.strategies import STRATEGIES as J_STRATEGIES, register_strategy as j_reg
+    from repro_torch.core.strategies import STRATEGIES as T_STRATEGIES, register_strategy as t_reg
+    j_reg(name, j_np, overwrite=True,
+          batch_fn=lambda keys, cs, n, m: [j_np(k, c, n, m) for k, c in zip(keys, cs)])
+    t_reg(name, t_np, overwrite=True,
+          batch_fn=lambda gens, cs, n, m: [t_np(g, c, n, m) for g, c in zip(gens, cs)])
+    try:
+        yield name
+    finally:
+        del J_STRATEGIES[name], T_STRATEGIES[name]

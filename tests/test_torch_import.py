@@ -30,7 +30,9 @@ def test_port_imports_neither_jax_nor_reference():
         "          'kernels.flash_attention.kernel', 'kernels.ssd_scan.kernel',\n"
         "          'obs.metrics', 'obs.torchprof', 'launch.flops', 'meta.features',\n"
         "          'meta.store', 'meta.portfolio', 'service.fingerprint', 'service.cache',\n"
-        "          'service.scheduler', 'service.server'):\n"
+        "          'service.scheduler', 'service.server', 'service.wire', 'service.worker',\n"
+        "          'service.transport', 'distributed.checkpoint', 'distributed.fault',\n"
+        "          'launch.serve_tabular'):\n"
         "    assert 'repro_torch.' + m in names, m\n"
         "assert not bad, bad\n"
         "print(len(names))\n"
@@ -63,7 +65,10 @@ def test_entry_points_raise_without_a_card(no_cuda):
     from repro_torch.launch import serve
     from repro_torch.core.measures import factorize
     from repro_torch.core.plan import execute, plan
-    from repro_torch.service import Scheduler, SubStratServer
+    from repro_torch.service import (
+        DistributedScheduler, ProcessWorkerPool, Scheduler, SimWorkerPool, SubStratServer,
+    )
+    from repro_torch.launch import serve_tabular
     X, y = _small_data()
     coded = factorize(X, y, device="cpu")
     calls = [
@@ -81,6 +86,9 @@ def test_entry_points_raise_without_a_card(no_cuda):
         lambda: lm_params_from_numpy({}, configs.get_arch("mamba2-130m").smoke),
         lambda: Scheduler(),
         lambda: SubStratServer(),
+        lambda: ProcessWorkerPool(1),
+        lambda: DistributedScheduler(SimWorkerPool(1)),
+        lambda: serve_tabular.main(["--jobs", "1", "--scale", "0.01"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -11,7 +11,6 @@ packages, so both serve the same subsets; its AutoML seed samples no MLP,
 whose init the port draws with torch.
 """
 import dataclasses
-import types
 import warnings
 
 import jax
@@ -21,7 +20,6 @@ import pytest
 from repro.automl.engine import AutoMLConfig as JCfg
 from repro.core.measures import factorize as j_factorize
 from repro.core.plan import plan as j_plan
-from repro.core.strategies import STRATEGIES as J_STRATEGIES, register_strategy as j_register
 from repro.service import DSTCache as JCache, DSTCacheEntry as JEntry
 from repro.service import SubStratServer as JServer, dataset_fingerprint as j_fingerprint
 from repro.service.scheduler import (
@@ -30,11 +28,9 @@ from repro.service.scheduler import (
 )
 from repro_torch.automl.engine import FAMILIES, AutoMLConfig as TCfg, search_init
 from repro_torch.core.gen_dst import GenDSTConfig
-from repro_torch.core.measures import factorize as t_factorize, host_codes
+from repro_torch.core.measures import factorize as t_factorize
 from repro_torch.core.plan import execute, plan as t_plan
-from repro_torch.core.strategies import (
-    STRATEGIES as T_STRATEGIES, register_strategy as t_register, run_strategy_batch,
-)
+from repro_torch.core.strategies import run_strategy_batch
 from repro_torch.core.substrat import SubStratConfig
 from repro_torch.data.tabular import PAPER_DATASETS, make_dataset, train_test_split
 from repro_torch.device import make_generator
@@ -48,44 +44,7 @@ from repro_torch.service.scheduler import (
     pack_megabatches as t_pack,
 )
 
-# ---------------------------------------------------------------------------
-# one deterministic numpy subset strategy, registered in both packages
-# ---------------------------------------------------------------------------
-
-
-def _np_subset(codes, n_bins, target_col, n, m):
-    """Rows ranked by a hash of their codes, the m - 1 columns with the most
-    bins and the target; fitness -|H(d) - H(D)| over the kept columns in
-    float64.  A pure function of the table, so cacheable."""
-    N, M = codes.shape
-    n = int(np.sqrt(N)) if n is None else n
-    m = max(2, int(0.25 * M)) if m is None else m
-    score = (codes.astype(np.int64) * (np.arange(M) * 7919 + 1)).sum(1) % 1009
-    rows = np.argsort(score, kind="stable")[:n].astype(np.int32)
-    feats = [j for j in np.argsort(-n_bins, kind="stable") if j != target_col][:m - 1]
-    mask = np.zeros(M, bool)
-    mask[feats] = True
-    mask[target_col] = True
-
-    def entropy(block):
-        h = []
-        for j in np.flatnonzero(mask):
-            p = np.bincount(block[:, j]) / len(block)
-            p = p[p > 0]
-            h.append(-(p * np.log2(p)).sum())
-        return float(np.mean(h))
-    return types.SimpleNamespace(row_idx=rows, col_mask=mask,
-                                 fitness=-abs(entropy(codes[rows]) - entropy(codes)))
-
-
-def _j_np(key, coded, n, m):
-    return _np_subset(np.asarray(coded.codes), np.asarray(coded.n_bins), coded.target_col, n, m)
-
-
-def _t_np(generator, coded, n, m):
-    codes, n_bins = host_codes(coded)
-    return _np_subset(codes, n_bins, coded.target_col, n, m)
-
+from _torch_port import np_strategy_registered, t_np
 
 STRATEGY = "test_torch_service_np"
 
@@ -94,12 +53,8 @@ STRATEGY = "test_torch_service_np"
 def registered():
     """The strategy, registered in both packages for this module's tests only
     (the registries are process-global; other test files count them)."""
-    j_register(STRATEGY, _j_np, overwrite=True,
-               batch_fn=lambda keys, cs, n, m: [_j_np(k, c, n, m) for k, c in zip(keys, cs)])
-    t_register(STRATEGY, _t_np, overwrite=True,
-               batch_fn=lambda gens, cs, n, m: [_t_np(g, c, n, m) for g, c in zip(gens, cs)])
-    yield
-    del J_STRATEGIES[STRATEGY], T_STRATEGIES[STRATEGY]
+    with np_strategy_registered(STRATEGY):
+        yield
 
 # this AutoML seed samples no MLP at 6 trials on the fleet's subsets (asserted below)
 SUB = dict(n_trials=6, rungs=(5, 10), seed=6)
@@ -401,8 +356,8 @@ def test_failed_job_is_isolated_and_dst_fn_bypasses_the_cache(tables):
     good = srv.submit(XB, yB, config=config)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", DeprecationWarning)
-        a = srv.submit(XA, yA, config=config, dst_fn=_t_np)
-        b = srv.submit(XA, yA, config=config, dst_fn=_t_np)
+        a = srv.submit(XA, yA, config=config, dst_fn=t_np)
+        b = srv.submit(XA, yA, config=config, dst_fn=t_np)
     srv.run()
     assert srv.poll(bad).phase == "failed" and "boom" in srv.poll(bad).error
     assert srv.poll(good).done and srv.poll(a).done and srv.poll(b).done
