@@ -46,10 +46,14 @@ Phases, in order; any failure exits non-zero and prints no result:
    shape (B 4, S 1024, 32 heads, hd 80, bf16, causal) and at edge shapes
    (GQA, MQA with hd 256, ragged S, float32, non-causal; for the bf16 wgmma
    body also hd 80 with Sq no multiple of its 128-row tile, Skv > Sq
-   non-causal, ragged hd 256 MQA, and hd 20, which the wrapper pads): bf16
-   within 2e-2, float32 within 2e-5.  Timed beside its plain version,
-   ``scaled_dot_product_attention`` and its bound, with its achieved TFLOP/s
-   and share of the bound.
+   non-causal, ragged hd 256 MQA, and hd 20, which the wrapper pads), and at
+   phase 14's shapes (the qwen2-moe, phi-3-vision (hd 96) and kimi-k2 (GQA
+   64/8, hd 112) prefills, whisper's non-causal encoder over 1500 frames and
+   its cross-attention of 4 queries over them, float32 at hd 96 and 4 x
+   1500): bf16 within 2e-2, float32 within 2e-5.  Timed beside its plain
+   version, ``scaled_dot_product_attention`` and its bound, with its
+   achieved TFLOP/s and share of the bound, at the zamba2, qwen2-moe,
+   phi-3-vision and kimi-k2 prefill shapes.
 8. The SSD-scan kernel against its plain version at zamba2's shape (B 4,
    S 1024, 80 heads, P = N = 64, bf16: the chunked body, chunks of 128) and
    at edge shapes (G > 1 with a partial chunk, small Q, float32, N 128, and
@@ -138,8 +142,31 @@ Phases, in order; any failure exits non-zero and prints no result:
    waits of each front-end step of one D1 job (sync-debug "warn").  The
    two workers and the front end share the one card.
 
-Then it prints the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and,
-last, ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+14. The moe, vlm and encdec families.  (a) The qwen2-moe, kimi-k2,
+   phi-3-vision and whisper-base smoke configs in float32, the same weights
+   and inputs on the card and the CPU: logits within 1e-4, 8 greedy tokens
+   equal.  (b) At full width in bf16 with seeded weights, batch 4:
+   qwen2-moe-a2.7b through ``launch.serve.main`` (all 24 layers, prompt
+   1024, 32 tokens), phi-3-vision-4.2b (32 layers, 256 patch embeddings +
+   768 text tokens, 32 tokens) and whisper-base (6 + 6 layers, 1500 frames,
+   a 4-token prompt, 64 tokens) through their model entry points, kimi-k2
+   cut to one layer (prompt 1024, 16 tokens) through ``serve.generate``.
+   B3's launch counters are zeroed before each prefill and read after it
+   and after decode: 24, 32, 18 and 1 per prefill, none in decode; finite
+   logits, ids in range; cold and warm prefill, decode ms/token, tokens/s,
+   peak memory, qwen2-moe's useful TFLOP/s (``launch/flops``), its prefill
+   and decode profiled (B3's share of the prefill's device time) and the
+   device operations of one MoE block at a decode step.  (c) Decode steps of
+   qwen2-moe, phi-3-vision and whisper under sync-debug "error".  (d) The
+   serving invariant in float32 (decode = forward within 1e-2): qwen2-moe
+   at full width and 4 layers with capacity factor E / k (forward drops no
+   token), phi-3-vision at full width and 8 layers with patch embeddings,
+   whisper-base whole.
+
+Then it prints the ``{"kernels": [...]}`` line (B3's entry also carries its
+times at the other prefill shapes and its launches per prefill of each
+served model), the ``nvidia-smi`` line and, last, ``{"ok": true, "device":
+{...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -159,6 +186,9 @@ HIST_TOL = 1e-5                # fractional-weight histogram: rtol = atol
 FIT_TOL = 1e-6                 # fused kernel fitness, and DST fitness recomputation
 # flash attention against its plain version, max-abs (tests/test_kernels.py:145)
 FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# ||o - o_plain|| / ||o_plain||: scaled to the output, which the absolute
+# limit is not where a non-causal row averages ~S/e keys (|o| ~ 0.04 at 1500)
+FA_REL_TOL = 1e-2
 # SSD scan y against its plain version, max-abs (tests/test_ssd_kernel.py:35);
 # its final state within SSD_STATE_RTOL of the state's largest magnitude
 SSD_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
@@ -349,13 +379,26 @@ def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float) -> tuple[float, str
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def rel_err(out, ref) -> float:
+    """||out - ref|| / ||ref||, in float32."""
+    return ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+
+
 def _dtype_name(dtype) -> str:
     return str(dtype).replace("torch.", "")
 
 
+# prefill shapes B3 is timed at beside SDPA and its bound: (label, B, S, H, Kh, hd)
+FA_TIMED = (("zamba2-2.7b", 4, 1024, 32, 32, 80),
+            ("qwen2-moe-a2.7b", 4, 1024, 16, 16, 128),
+            ("phi-3-vision-4.2b", 4, 1024, 32, 32, 96),       # 128-column tile, 1/4 padding
+            ("kimi-k2-1t-a32b", 4, 1024, 64, 8, 112))         # 128-column tile, 1/8 padding
+
+
 def phase7_flash_attention(torch, dev) -> dict:
     """B3 against its plain version on the card, timed beside its plain
-    version, ``scaled_dot_product_attention`` and its bound."""
+    version, ``scaled_dot_product_attention`` and its bound at each prefill
+    shape of ``FA_TIMED``; the first (zamba2) is the kernels line's."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
     from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -383,6 +426,13 @@ def phase7_flash_attention(torch, dev) -> dict:
         (2, 200, 333, 8, 2, 80, bf16, False),      # Skv > Sq, non-causal
         (2, 333, 333, 8, 1, 256, bf16, True),      # MQA, hd 256, ragged
         (2, 70, 70, 4, 2, 20, bf16, True),         # hd 20: padded to 24 by the wrapper
+        (4, 1024, 1024, 16, 16, 128, bf16, True),  # qwen2-moe prefill
+        (4, 1024, 1024, 32, 32, 96, bf16, True),   # phi-3-vision prefill: hd 96
+        (4, 1024, 1024, 64, 8, 112, bf16, True),   # kimi-k2 prefill: GQA 64/8, hd 112
+        (4, 1500, 1500, 8, 8, 64, bf16, False),    # whisper encoder, 1500 frames
+        (4, 4, 1500, 8, 8, 64, bf16, False),       # whisper cross-attention at prefill
+        (2, 300, 300, 32, 32, 96, f32, True),      # float32 at hd 96 (phase 14's invariant)
+        (2, 4, 1500, 8, 8, 64, f32, False),        # float32 cross-attention, Sq 4
     ]
     main_err = None
     for i, (B, Sq, Skv, H, Kh, hd, dtype, causal) in enumerate(shapes):
@@ -391,41 +441,73 @@ def phase7_flash_attention(torch, dev) -> dict:
         o_r = attention_ref(q, k, v, causal=causal)
         torch.cuda.synchronize()
         err = (o_k.float() - o_r.float()).abs().max().item()
+        rel = rel_err(o_k, o_r)
         tol = FA_TOL[_dtype_name(dtype)]
+        where = f"{(B, Sq, Skv, H, Kh, hd)} {_dtype_name(dtype)} causal={causal}"
         if not err <= tol:
-            fail(f"flash_attention: max_abs_err {err} > {tol} at {(B, Sq, Skv, H, Kh, hd)} "
-                 f"{_dtype_name(dtype)} causal={causal}")
+            fail(f"flash_attention: max_abs_err {err} > {tol} at {where}")
+        if not rel <= FA_REL_TOL:
+            fail(f"flash_attention: relative error {rel} > {FA_REL_TOL} at {where}")
         print(f"flash_attention B={B} Sq={Sq} Skv={Skv} H={H} Kh={Kh} hd={hd} "
-              f"{_dtype_name(dtype)} causal={causal}: max_abs_err {err:.3e}")
+              f"{_dtype_name(dtype)} causal={causal}: max_abs_err {err:.3e}, max|o| "
+              f"{o_r.float().abs().max().item():.3e}, relative error {rel:.3e}")
+        # faults the relative check must see: the 128-key tile's partial
+        # remainder dropped (whisper's 1500 keys), the softmax scale taken
+        # from the 128-column tile that hd 96 and 112 are padded to
+        planted = []
+        if not causal and Skv >= 1024 and Skv % 128:
+            cut = Skv % 128
+            planted.append((f"last {cut} keys dropped",
+                             attention_ref(q, k[:, :-cut], v[:, :-cut], causal=False)))
+        if hd in (96, 112):
+            planted.append(("softmax scale of the 128-column tile",
+                            attention_ref(q.float() * (hd / 128) ** 0.5, k, v, causal=causal)))
+        for what, o_f in planted:
+            r = rel_err(o_f, o_r)
+            print(f"  planted fault ({what}): relative error {r:.3e}")
+            if not r > FA_REL_TOL:
+                fail(f"flash_attention: the relative check misses a planted fault ({what}) "
+                     f"at {where}: {r} <= {FA_REL_TOL}")
         if i == 0:
             main_err = err
 
-    B, S, _, H, Kh, hd, dtype, _ = main_shape
-    q, k, v = inputs(B, S, S, H, Kh, hd, dtype, seed=100)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))   # SDPA's layout
-    ms_k = time_ms(torch, lambda: flash_attention_cuda(q, k, v, causal=True), "kernel",
-                   iters=20)
-    ms_p = time_ms(torch, lambda: attention_ref(q, k, v, causal=True), "plain", iters=3,
-                   repeats=3, warmup=1)
-    ms_l = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
-                   "scaled_dot_product_attention", iters=20)
-    # q, k, v read once and o written once; 2 * hd multiply-adds per kept
-    # (query, key) pair in QK^T and again in PV, S(S+1)/2 pairs per head
-    n_bytes = 4 * q.numel() * q.element_size()
-    n_ops = 4 * B * H * hd * S * (S + 1) // 2
-    b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_OPS_PER_S)
-    dev_ms = kernel_device_ms(torch, lambda: flash_attention_cuda(q, k, v, causal=True),
-                              "flash_attention_wgmma_kernel", calls=20)
-    print(f"flash_attention (B={B}, S={S}, H={H}, hd={hd}, bf16, causal): kernel "
-          f"{ms_k:.4f} ms, device {dev_ms} ms, plain {ms_p:.4f} ms, sdpa {ms_l:.4f} ms, "
-          f"bound {b_ms:.5f} ms ({b_by})")
-    print(f"  achieved {n_ops / (ms_k * 1e-3) / 1e12:.1f} TFLOP/s (causal operations), "
-          f"{b_ms / ms_k:.3f} of the bound; kernel / sdpa {ms_k / ms_l:.3f}")
+    timed = []
+    for j, (label, B, S, H, Kh, hd) in enumerate(FA_TIMED):
+        q, k, v = inputs(B, S, S, H, Kh, hd, bf16, seed=100 + j)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))   # SDPA's layout
+        print(f"flash_attention at {label}'s prefill (B={B}, S={S}, H={H}, Kh={Kh}, hd={hd}, "
+              f"bf16, causal):")
+        ms_k = time_ms(torch, lambda: flash_attention_cuda(q, k, v, causal=True), "kernel",
+                       iters=20)
+        ms_p = time_ms(torch, lambda: attention_ref(q, k, v, causal=True), "plain", iters=3,
+                       repeats=3, warmup=1)
+        ms_l = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=H != Kh), "scaled_dot_product_attention",
+            iters=20)
+        # q, k, v read once and o written once; 2 * hd multiply-adds per kept
+        # (query, key) pair in QK^T and again in PV, S(S+1)/2 pairs per head
+        n_bytes = 2 * (q.numel() + k.numel()) * q.element_size()
+        n_ops = 4 * B * H * hd * S * (S + 1) // 2
+        b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_OPS_PER_S)
+        dev_ms = kernel_device_ms(torch, lambda: flash_attention_cuda(q, k, v, causal=True),
+                                  "flash_attention_wgmma_kernel", calls=20)
+        tile = 128 if 80 < hd <= 128 else hd
+        print(f"  kernel {ms_k:.4f} ms, device {dev_ms} ms, plain {ms_p:.4f} ms, sdpa "
+              f"{ms_l:.4f} ms, bound {b_ms:.5f} ms ({b_by}); achieved "
+              f"{n_ops / (ms_k * 1e-3) / 1e12:.1f} TFLOP/s (causal operations), "
+              f"{b_ms / ms_k:.3f} of the bound; kernel / sdpa {ms_k / ms_l:.3f}; "
+              f"tile {tile} columns for hd {hd}  [{smi_line()}]")
+        timed.append({"shape": label, "B": B, "S": S, "H": H, "Kh": Kh, "hd": hd, "ms": ms_k,
+                      "device_ms": dev_ms, "plain_ms": ms_p, "library_ms": ms_l,
+                      "bound_ms": b_ms, "bound_by": b_by})
+    main = timed[0]
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:78",
-            "launches": None, "max_abs_err": main_err, "ms": ms_k, "plain_ms": ms_p,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": ms_l}
+            "launches": None, "max_abs_err": main_err, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "timed_shapes": timed}
 
 
 def phase8_ssd_scan(torch, dev) -> dict:
@@ -582,7 +664,7 @@ def phase9_serving(torch, dev, K) -> dict:
 
     # warm timings and the profile, on weights and prompts made as serve.main makes them
     batch, prompt_len, gen = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
-    params = lm.to_compute_dtype_(lm.init_params(make_generator(0, dev), full), full)
+    params = lm.init_params(make_generator(0, dev), full)
     prompts = torch.randint(0, full.vocab_size, (batch, prompt_len),
                             generator=make_generator(1, dev), device=dev)
     warm = serve.generate(params, prompts, full, gen)
@@ -1457,6 +1539,392 @@ def phase13_transport(torch, dev, K, jobs, pl) -> None:
     print(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 14: the moe, vlm and encdec families.  Full width: batch, prompt
+# positions and generated tokens of each run
+FAM_BATCH, FAM_PROMPT, FAM_GEN = 4, 1024, 32
+MOE_ARGV = ["--arch", "qwen2-moe-a2.7b", "--preset", "full", "--batch", str(FAM_BATCH),
+            "--prompt-len", str(FAM_PROMPT), "--gen", str(FAM_GEN), "--device", "cuda",
+            "--seed", "0"]
+WHISPER_FRAMES, WHISPER_PROMPT, WHISPER_GEN = 1500, 4, 64   # 30 s of audio after the stem
+KIMI_LAYERS, KIMI_GEN = 1, 16
+
+
+def _generate(torch, prefill, decode, pos0: int, gen: int, K=None) -> dict:
+    """Greedy generation on the card: ``prefill()`` -> (logits, cache), then
+    ``gen - 1`` steps ``decode(cache, token, pos)`` from position ``pos0``.
+    With ``K``, the kernels' launch counts are zeroed before the prefill and
+    read after it and after the decode loop.  Returns the ids (on the CPU),
+    the first and last logits, prefill ms and decode ms per step."""
+    if K is not None:
+        K.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill()
+    torch.cuda.synchronize()
+    out = {"prefill_ms": (time.perf_counter() - t0) * 1e3, "prefill_logits": logits}
+    if K is not None:
+        out["prefill_launches"] = K.launch_counts()
+    tok = logits[:, -1].argmax(dim=-1, keepdim=True)
+    ids = [tok]
+    t0 = time.perf_counter()
+    for i in range(gen - 1):
+        logits, cache = decode(cache, tok, pos0 + i)
+        tok = logits[:, -1].argmax(dim=-1, keepdim=True)
+        ids.append(tok)
+    torch.cuda.synchronize()
+    out["decode_ms"] = (time.perf_counter() - t0) * 1e3 / max(gen - 1, 1)
+    if K is not None:
+        out["launches"] = K.launch_counts()
+    out.update(ids=torch.cat(ids, dim=1).cpu(), last_logits=logits, cache=cache)
+    return out
+
+
+def _prefill_median_ms(torch, prefill, n: int = 5) -> float:
+    """Median wall ms of ``n`` prefill calls, each waited for, on a prefill
+    the runs before it have warmed."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = prefill()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        del out
+    return sorted(times)[n // 2]
+
+
+def _check_full(name: str, torch, run: dict, vocab: int, n_b3: int, B: int, gen: int) -> None:
+    """B3 launched ``n_b3`` times by the prefill and never by decode; logits
+    finite; ``gen`` ids per sequence, in range."""
+    got = (run["prefill_launches"]["flash_attention"], run["launches"]["flash_attention"])
+    if got != (n_b3, n_b3):
+        fail(f"{name}: flash_attention launches after prefill and after decode {got}, "
+             f"expected {n_b3} by the prefill and none by decode")
+    if not (torch.isfinite(run["prefill_logits"]).all() and
+            torch.isfinite(run["last_logits"]).all()):
+        fail(f"{name}: logits are not finite")
+    ids = run["ids"]
+    if ids.shape != (B, gen) or not (0 <= int(ids.min()) and int(ids.max()) < vocab):
+        fail(f"{name}: generated ids {tuple(ids.shape)} out of shape or range")
+
+
+def _no_host_sync(torch, name: str, loop) -> None:
+    """Run ``loop()`` under sync-debug "error": any operation that waits for
+    the host raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loop()
+    except RuntimeError as exc:
+        fail(f"{name}: decode synchronised with the host: {exc}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print(f"  {name} decode loop: no host sync inside the steps")
+
+
+def _invariant(torch, name: str, dec, ref) -> None:
+    excess = ((dec - ref).abs() - SERVE_INVARIANT_TOL * (1 + ref.abs())).max().item()
+    err = (dec - ref).abs().max().item()
+    if not excess <= 0:
+        fail(f"{name} serving invariant: decode differs from forward by {err} (atol = rtol = "
+             f"{SERVE_INVARIANT_TOL})")
+    print(f"serving invariant ({name}, float32): decode = forward within "
+          f"{SERVE_INVARIANT_TOL}, max_abs_err {err:.3e}")
+
+
+def _free(torch) -> None:
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def phase14_families(torch, dev, K) -> dict:
+    """The moe, vlm and encdec families on the card: (a) each new smoke config
+    on the card against the CPU; (b) qwen2-moe-a2.7b through ``serve.main``,
+    phi-3-vision-4.2b and whisper-base through their model entry points and
+    kimi-k2 cut to one layer through ``serve.generate``, at full width in
+    bf16, with B3's launches per prefill; the qwen2-moe prefill and decode
+    profiled; (c) their decode loops under sync-debug "error"; (d) the
+    serving invariant in float32.  Returns B3's launches per prefill."""
+    import copy
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.device import make_generator
+    from repro_torch.launch import serve
+    from repro_torch.launch.flops import model_flops
+    from repro_torch.models import encdec, lm
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.models.moe import moe_block
+
+    t_phase = time.perf_counter()
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def randn(shape, seed, device=dev, dtype=f32):
+        return torch.randn(shape, generator=make_generator(seed, device), device=device,
+                           dtype=dtype)
+
+    def randint(high, shape, seed, device=dev):
+        return torch.randint(0, high, shape, generator=make_generator(seed, device),
+                             device=device)
+
+    # (a) the smoke configs in float32: the same weights and inputs on the card
+    # (B3) and on the CPU (plain versions)
+    def smoke_run(cfg, p, inputs):
+        """Forward logits (on the CPU) and 8 greedy tokens."""
+        if cfg.family == "encdec":
+            logits = encdec.forward(p, inputs, cfg)
+            ids = _generate(torch, lambda: encdec.prefill(
+                p, {**inputs, "tokens": inputs["tokens"][:, :8]}, cfg, max_dec_len=16),
+                lambda c, t, pos: encdec.decode(p, c, t, pos, cfg), 8, 8)["ids"]
+        elif cfg.family == "vlm":
+            n_img = cfg.n_img_tokens
+            logits = lm.forward(p, inputs, cfg)
+            ids = _generate(torch, lambda: lm.prefill(
+                p, {**inputs, "tokens": inputs["tokens"][:, :32]}, cfg, max_len=n_img + 40),
+                lambda c, t, pos: lm.decode(p, c, t, pos, cfg), n_img + 32, 8)["ids"]
+        else:
+            logits = lm.forward(p, inputs, cfg)
+            ids = serve.generate(p, inputs["tokens"][:, :32], cfg, 8).ids
+        return logits.cpu(), ids
+
+    cpu = torch.device("cpu")
+    for arch_id in ("qwen2-moe-a2.7b", "kimi-k2-1t-a32b", "phi-3-vision-4.2b", "whisper-base"):
+        cfg = dataclasses.replace(get_arch(arch_id).smoke, dtype=f32)
+        if cfg.family == "encdec":
+            p_cpu = encdec.init_params(make_generator(0), cfg)
+            inputs = {"frames": randn((2, 64, cfg.d_model), 1, cpu),
+                      "tokens": randint(cfg.vocab_size, (2, 16), 2, cpu)}
+        else:
+            p_cpu = lm.init_params(make_generator(0), cfg)
+            inputs = {"tokens": randint(cfg.vocab_size, (2, 40), 1, cpu)}
+            if cfg.family == "vlm":
+                inputs["patch_embeds"] = randn((2, cfg.n_img_tokens, cfg.d_model), 2, cpu)
+        logits_cpu, ids_cpu = smoke_run(cfg, p_cpu, inputs)
+        logits_dev, ids_dev = smoke_run(cfg, copy.deepcopy(p_cpu).to(dev),
+                                        {k: v.to(dev) for k, v in inputs.items()})
+        err = (logits_dev - logits_cpu).abs().max().item()
+        if not err <= SERVE_CARD_CPU_TOL:
+            fail(f"{cfg.name}: card and CPU logits differ by {err} > {SERVE_CARD_CPU_TOL}")
+        if not torch.equal(ids_dev, ids_cpu):
+            fail(f"{cfg.name}: greedy tokens differ, card {ids_dev.tolist()} vs CPU "
+                 f"{ids_cpu.tolist()}")
+        print(f"families smoke ({cfg.name}, {cfg.family}, float32): card = CPU, logits "
+              f"max_abs_err {err:.3e}, greedy tokens equal")
+    print(f"  ({time.perf_counter() - t_phase:.1f} s into phase 14)")
+
+    per_prefill = {}
+    B, S, G = FAM_BATCH, FAM_PROMPT, FAM_GEN
+
+    def report(name, cold, warm, prefill_ms, n_b3, tokens_per_seq):
+        per_prefill[name] = n_b3
+        print(f"serving {name} (bf16, batch {B}, {tokens_per_seq}): cold prefill "
+              f"{cold['prefill_ms']:.3f} ms, warm prefill {prefill_ms:.3f} ms (median of 5; "
+              f"the warm run's one {warm['prefill_ms']:.3f} ms), decode "
+              f"{warm['decode_ms']:.3f} ms/token, {B * 1e3 / warm['decode_ms']:.1f} tokens/s; "
+              f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; B3 "
+              f"{n_b3} launches per prefill, none in decode  [{smi_line()}]")
+
+    # (b) qwen2-moe-a2.7b: the launcher at full width, then warm runs
+    arch = get_arch("qwen2-moe-a2.7b")
+    full = arch.config
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    res = serve.main(MOE_ARGV)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    print(f"serve.main({' '.join(MOE_ARGV)}): launches {launches}")
+    cold = {"prefill_ms": res.prefill_ms, "decode_ms": res.decode_ms_per_token,
+            "prefill_launches": launches, "launches": launches, "ids": res.ids,
+            "prefill_logits": res.prefill_logits, "last_logits": res.last_logits}
+    _check_full("qwen2-moe-a2.7b", torch, cold, full.vocab_size, full.n_layers, B, G)
+    del res
+    params = lm.init_params(make_generator(0, dev), full)
+    prompts = torch.randint(0, full.vocab_size, (B, S), generator=make_generator(1, dev),
+                            device=dev)
+    prefill = lambda: lm.prefill(params, {"tokens": prompts}, full, max_len=S + G)
+    decode = lambda c, t, pos: lm.decode(params, c, t, pos, full)
+    warm = _generate(torch, prefill, decode, S, G, K)
+    _check_full("qwen2-moe-a2.7b", torch, warm, full.vocab_size, full.n_layers, B, G)
+    if not torch.equal(warm["ids"], cold["ids"]):
+        fail("qwen2-moe-a2.7b: the warm run's tokens differ from serve.main's (same seeds)")
+    prefill_ms = _prefill_median_ms(torch, prefill)
+    report("qwen2-moe-a2.7b", cold, warm, prefill_ms, full.n_layers,
+           f"prompt {S}, {G} tokens, all {full.n_layers} layers")
+    flops = model_flops(full, ShapeSpec("prefill", S, B, "prefill"))
+    tflops = flops / (prefill_ms * 1e-3) / 1e12
+    print(f"  useful prefill work {flops / 1e12:.3f} TFLOP (launch/flops.model_flops): "
+          f"{tflops:.1f} TFLOP/s at the median warm prefill, "
+          f"{tflops * 1e12 / BF16_OPS_PER_S:.4f} of 989 TFLOP/s")
+    print("profiled qwen2-moe prefill, then its decode loop:")
+    events, _ = profile_share(torch, prefill)
+    total_us = sum(dev_us(e) for e in events)
+    fa_us = sum(dev_us(e) for e in events if "flash_attention" in e.key)
+    print(f"  prefill: {sum(e.count for e in events)} device operations; B3 "
+          f"{fa_us / 1e3:.4f} ms of {total_us / 1e3:.4f} ms device time "
+          f"({fa_us / total_us if total_us else float('nan'):.4f})")
+    cache = warm.pop("cache")
+    tok = warm["ids"][:, :1].to(dev)
+
+    def moe_decode_loop(steps=G - 1):
+        t = tok
+        for i in range(steps):
+            logits, _ = lm.decode(params, cache, t, S + i, full)
+            t = logits[:, -1].argmax(dim=-1, keepdim=True)
+    events, _ = profile_share(torch, moe_decode_loop)
+    print(f"  decode: {sum(e.count for e in events) / (G - 1):.1f} device operations and "
+          f"{sum(dev_us(e) for e in events) / 1e3 / (G - 1):.4f} ms device time per step")
+    x1 = randn((B, 1, full.d_model), 5, dtype=bf16)
+    with torch.inference_mode():
+        events, _ = profile_share(torch, lambda: moe_block(params["layers"][0]["moe"], x1,
+                                                           full), top=12)
+    print(f"  one MoE block at a decode step (T = {B} tokens): "
+          f"{sum(e.count for e in events)} device operations, "
+          f"{sum(dev_us(e) for e in events) / 1e3:.4f} ms device time")
+    _no_host_sync(torch, "qwen2-moe-a2.7b", lambda: moe_decode_loop(4))
+    del params, cache, warm, cold, prefill, decode
+    print(f"  ({time.perf_counter() - t_phase:.1f} s into phase 14)")
+
+    # (b) phi-3-vision-4.2b: 256 patch embeddings and 768 text tokens
+    full = get_arch("phi-3-vision-4.2b").config
+    n_img = full.n_img_tokens
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(make_generator(0, dev), full)
+    batch = {"tokens": randint(full.vocab_size, (B, S - n_img), 1),
+             "patch_embeds": randn((B, n_img, full.d_model), 2, dtype=bf16)}
+    prefill = lambda: lm.prefill(params, batch, full, max_len=S + G)
+    decode = lambda c, t, pos: lm.decode(params, c, t, pos, full)
+    cold = _generate(torch, prefill, decode, S, G, K)
+    warm = _generate(torch, prefill, decode, S, G, K)
+    for run in (cold, warm):
+        _check_full("phi-3-vision-4.2b", torch, run, full.vocab_size, full.n_layers, B, G)
+    report("phi-3-vision-4.2b", cold, warm, _prefill_median_ms(torch, prefill), full.n_layers,
+           f"{n_img} patches + {S - n_img} text tokens, {G} tokens, all {full.n_layers} layers")
+    cache, tok = warm.pop("cache"), warm["ids"][:, :1].to(dev)
+
+    def vlm_loop():
+        t = tok
+        for i in range(4):
+            logits, _ = lm.decode(params, cache, t, S + i, full)
+            t = logits[:, -1].argmax(dim=-1, keepdim=True)
+    _no_host_sync(torch, "phi-3-vision-4.2b", vlm_loop)
+    del params, cache, cold, warm, prefill, decode, batch
+
+    # (b) whisper-base: 1500 frames, a 4-token decoder prompt, 64 tokens
+    full = get_arch("whisper-base").config
+    P, GW = WHISPER_PROMPT, WHISPER_GEN
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    params = encdec.init_params(make_generator(0, dev), full)
+    batch = {"frames": randn((B, WHISPER_FRAMES, full.d_model), 1, dtype=bf16),
+             "tokens": randint(full.vocab_size, (B, P), 2)}
+    prefill = lambda: encdec.prefill(params, batch, full, max_dec_len=P + GW)
+    decode = lambda c, t, pos: encdec.decode(params, c, t, pos, full)
+    cold = _generate(torch, prefill, decode, P, GW, K)
+    warm = _generate(torch, prefill, decode, P, GW, K)
+    n_b3 = full.n_enc_layers + 2 * full.n_layers
+    for run in (cold, warm):
+        _check_full("whisper-base", torch, run, full.vocab_size, n_b3, B, GW)
+    report("whisper-base", cold, warm, _prefill_median_ms(torch, prefill), n_b3,
+           f"{WHISPER_FRAMES} frames, prompt {P}, {GW} tokens, {full.n_enc_layers} + "
+           f"{full.n_layers} layers")
+    cache, tok = warm.pop("cache"), warm["ids"][:, :1].to(dev)
+
+    def whisper_loop():
+        t = tok
+        for i in range(4):
+            logits, _ = encdec.decode(params, cache, t, P + i, full)
+            t = logits[:, -1].argmax(dim=-1, keepdim=True)
+    _no_host_sync(torch, "whisper-base", whisper_loop)
+    del params, cache, cold, warm, prefill, decode, batch
+
+    # (b) kimi-k2 at full width, cut to one layer (one layer's experts are 34 GB)
+    arch = get_arch("kimi-k2-1t-a32b")
+    full = dataclasses.replace(arch.config, n_layers=KIMI_LAYERS)
+    print(f"kimi-k2-1t-a32b reduced: n_layers {arch.config.n_layers} -> {KIMI_LAYERS} "
+          f"(full width, {full.param_dtype} params)")
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(make_generator(0, dev), full)
+    n_params = sum(p.numel() for p in params.parameters())
+    prompts = randint(full.vocab_size, (B, S), 1)
+    runs = []
+    for _ in range(2):
+        K.reset_launch_counts()
+        res = serve.generate(params, prompts, full, KIMI_GEN)
+        launches = K.launch_counts()
+        runs.append({"prefill_ms": res.prefill_ms, "decode_ms": res.decode_ms_per_token,
+                     "prefill_launches": launches, "launches": launches, "ids": res.ids,
+                     "prefill_logits": res.prefill_logits, "last_logits": res.last_logits})
+        _check_full("kimi-k2-1t-a32b", torch, runs[-1], full.vocab_size, KIMI_LAYERS, B,
+                    KIMI_GEN)
+    prefill_ms = _prefill_median_ms(
+        torch, lambda: lm.prefill(params, {"tokens": prompts}, full, max_len=S + KIMI_GEN))
+    report("kimi-k2-1t-a32b", runs[0], runs[1], prefill_ms, KIMI_LAYERS,
+           f"prompt {S}, {KIMI_GEN} tokens, {n_params / 1e9:.2f} B params, 1 layer")
+    del params, runs, res
+    _free(torch)
+    print(f"  ({time.perf_counter() - t_phase:.1f} s into phase 14)")
+
+    # (d) the serving invariant in float32: decode step t = forward at t,
+    # the prompt's tokens fed to decode (teacher forcing)
+    def invariant(name, ref, prefill, decode, positions):
+        logits, cache = prefill()
+        outs = [logits[:, 0]]
+        for pos in positions:
+            logits, cache = decode(cache, pos)
+            outs.append(logits[:, 0])
+        _invariant(torch, name, torch.stack(outs, dim=1), ref)
+
+    arch = get_arch("qwen2-moe-a2.7b").config
+    # forward over B * S tokens must drop none that decode keeps
+    cfg = dataclasses.replace(arch, n_layers=4, dtype=f32,
+                              capacity_factor=arch.n_experts / arch.moe_top_k)
+    params = lm.init_params(make_generator(3, dev), cfg)
+    S2, prompt = 144, 128
+    toks = randint(cfg.vocab_size, (2, S2), 4)
+    invariant(f"qwen2-moe width, 4 layers, capacity factor {cfg.capacity_factor}, S={S2}, "
+              f"prompt {prompt}",
+              lm.forward(params, {"tokens": toks}, cfg)[:, prompt - 1:],
+              lambda: lm.prefill(params, {"tokens": toks[:, :prompt]}, cfg, max_len=S2),
+              lambda c, pos: lm.decode(params, c, toks[:, pos:pos + 1], pos, cfg),
+              range(prompt, S2))
+    del params
+    _free(torch)
+
+    cfg = dataclasses.replace(get_arch("phi-3-vision-4.2b").config, n_layers=8, dtype=f32)
+    params = lm.init_params(make_generator(3, dev), cfg)
+    n_img = cfg.n_img_tokens
+    toks = randint(cfg.vocab_size, (2, S2), 4)
+    patches = randn((2, n_img, cfg.d_model), 5)
+    invariant(f"phi-3-vision width, 8 layers, {n_img} patches, S={S2}, prompt {prompt}",
+              lm.forward(params, {"tokens": toks, "patch_embeds": patches}, cfg)[:, prompt - 1:],
+              lambda: lm.prefill(params, {"tokens": toks[:, :prompt], "patch_embeds": patches},
+                                 cfg, max_len=n_img + S2),
+              lambda c, pos: lm.decode(params, c, toks[:, pos:pos + 1], n_img + pos, cfg),
+              range(prompt, S2))
+    del params
+    _free(torch)
+
+    cfg = dataclasses.replace(get_arch("whisper-base").config, dtype=f32)
+    params = encdec.init_params(make_generator(3, dev), cfg)
+    S2, prompt = 48, 32
+    frames = randn((2, WHISPER_FRAMES, cfg.d_model), 4)
+    toks = randint(cfg.vocab_size, (2, S2), 5)
+    invariant(f"whisper-base, {WHISPER_FRAMES} frames, S={S2}, prompt {prompt}",
+              encdec.forward(params, {"frames": frames, "tokens": toks}, cfg)[:, prompt - 1:],
+              lambda: encdec.prefill(params, {"frames": frames, "tokens": toks[:, :prompt]},
+                                     cfg, max_dec_len=S2),
+              lambda c, pos: encdec.decode(params, c, toks[:, pos:pos + 1], pos, cfg),
+              range(prompt, S2))
+    del params
+    _free(torch)
+    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
+    return per_prefill
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1827,6 +2295,11 @@ def main() -> None:
 
     # --- 13. the multi-process tier: workers, a kill, HTTP, a resume ------------
     phase13_transport(torch, dev, K, [tables[0], tables[1], tables[4]], plan("gen_dst"))
+
+    # --- 14. the moe, vlm and encdec families ------------------------------------
+    per_prefill = phase14_families(torch, dev, K)
+    fa = next(e for e in kernels if e["name"] == "flash_attention")
+    fa["launches_per_prefill"] = {"zamba2-2.7b": fa["launches"], **per_prefill}
 
     print(json.dumps({"kernels": kernels}))
     print(smi_line())

@@ -39,18 +39,31 @@ FULL_ATTN_SKIP = (
 )
 
 
+def _bf16(a: np.ndarray, device) -> torch.Tensor:
+    """float64 draws as bfloat16 (the bits of the reference's
+    ``jnp.asarray(a, jnp.bfloat16)``)."""
+    return torch.as_tensor(a, device=device).to(torch.bfloat16)
+
+
 def smoke_batch(cfg: ModelConfig, *, batch: int = 2, seq: int = 32, seed: int = 0,
                 device=None) -> Dict[str, torch.Tensor]:
-    """Small concrete token batch (train kind) from ``np.random.default_rng(seed)``,
-    the same draws as the reference's ``smoke_batch``."""
-    if cfg.family in ("encdec", "vlm"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported to repro_torch yet (ROADMAP A11)")
+    """Small concrete batch (train kind) from ``np.random.default_rng(seed)``,
+    the same draws in the same order as the reference's ``smoke_batch``:
+    encdec ``frames`` (bf16) and ``seq // dec_ratio`` (at least 8) decoder
+    tokens; vlm ``seq - n_img`` (at least 4) text tokens and
+    ``patch_embeds`` (bf16); otherwise ``seq`` tokens."""
     rng = np.random.default_rng(seed)
     V = cfg.vocab_size
-    return {
-        "tokens": torch.as_tensor(rng.integers(0, V, (batch, seq)), dtype=torch.int32,
-                                  device=device),
-        "labels": torch.as_tensor(rng.integers(0, V, (batch, seq)), dtype=torch.int32,
-                                  device=device),
-    }
+    ints = lambda shape: torch.as_tensor(rng.integers(0, V, shape), dtype=torch.int32,
+                                         device=device)
+    if cfg.family == "encdec":
+        S_dec = max(8, seq // cfg.dec_ratio)
+        return {"frames": _bf16(rng.normal(0, 1, (batch, seq, cfg.d_model)), device),
+                "tokens": ints((batch, S_dec)), "labels": ints((batch, S_dec))}
+    if cfg.family == "vlm":
+        n_img = cfg.n_img_tokens
+        S_text = max(4, seq - n_img)
+        return {"tokens": ints((batch, S_text)),
+                "patch_embeds": _bf16(rng.normal(0, 1, (batch, n_img, cfg.d_model)), device),
+                "labels": ints((batch, S_text))}
+    return {"tokens": ints((batch, seq)), "labels": ints((batch, seq))}

@@ -10,8 +10,9 @@ into the port's tensors here:
   trees hold them: ``logreg``/``linear_svm`` ``{"w", "b"}``, ``mlp``
   ``{"layers": [{"w", "b"}, ...]}``, ``gnb`` ``{"mean", "var", "prior"}``,
   ``centroid`` ``{"cent"}``;
-* ``lm_params_from_numpy`` — the parameters of a dense, ssm or hybrid LM
-  (``models/lm.py``) from the reference's stacked param tree.
+* ``lm_params_from_numpy`` — the parameters of an LM of any family
+  (``models/lm.py``, ``models/encdec.py``) from the reference's stacked
+  param tree.
 """
 from __future__ import annotations
 
@@ -22,7 +23,6 @@ from .core.measures import CodedDataset
 from .device import DeviceLike, resolve_device
 from .models.config import ModelConfig
 from .models.layers import Params
-from .models.lm import PORTED_FAMILIES
 
 __all__ = ["coded_from_numpy", "params_from_numpy", "lm_params_from_numpy"]
 
@@ -72,26 +72,35 @@ def _lm_leaf(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
+# leaves the reference keeps in float32 whatever ``param_dtype`` is (moe.py:31, :43)
+_FLOAT32_LEAVES = ("router", "shared_gate")
+
+
 def _map(fn, tree):
-    return {k: _map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+    """``fn(name, leaf)`` over a nested dict, keeping its structure."""
+    return {k: _map(fn, v) if isinstance(v, dict) else fn(k, v) for k, v in tree.items()}
 
 
 def lm_params_from_numpy(tree, cfg: ModelConfig, device: DeviceLike = None) -> Params:
-    """The port's LM parameters (``models.lm.init_params``' layout) on
-    ``device`` from the reference's param tree as numpy arrays
-    (``jax.tree.map(np.asarray, params)``).
+    """The port's LM parameters (``models.lm.init_params``' layout, or
+    ``models.encdec.init_params``' for the encdec family) on ``device`` from
+    the reference's param tree as numpy arrays (``jax.tree.map(np.asarray,
+    params)``).
 
-    The leaves under ``layers`` are stacked (L, ...) and are unstacked into
-    one entry per layer; ``embed``, ``final_norm``, ``lm_head`` (untied
-    embeddings) and ``shared_attn`` (hybrid) come as they are.  Every leaf
-    is stored in ``cfg.param_dtype``."""
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported to repro_torch yet (ROADMAP A11)")
+    The stacked leaves (L, ...) are unstacked into one entry per layer:
+    ``layers`` (``n_layers``), or for encdec ``enc_layers`` (``n_enc_layers``)
+    and ``dec_layers`` (``n_layers``); every other entry (``embed``,
+    ``final_norm``, ``lm_head``, ``enc_norm``, ``shared_attn``) comes as it
+    is.  Every leaf is stored in ``cfg.param_dtype``, but the MoE router and
+    shared-expert gate, which stay float32."""
     dev = resolve_device(device)
-    leaf = lambda x: _lm_leaf(x, cfg.param_dtype, dev)
-    out = {k: (_map(leaf, v) if isinstance(v, dict) else leaf(v))
-           for k, v in tree.items() if k != "layers"}
-    out["layers"] = [_map(lambda a: leaf(np.asarray(a)[i]), tree["layers"])
-                     for i in range(cfg.n_layers)]
+    stacked = ({"enc_layers": cfg.n_enc_layers, "dec_layers": cfg.n_layers}
+               if cfg.family == "encdec" else {"layers": cfg.n_layers})
+    leaf = lambda name, x: _lm_leaf(
+        x, torch.float32 if name in _FLOAT32_LEAVES else cfg.param_dtype, dev)
+    out = {k: (_map(leaf, v) if isinstance(v, dict) else leaf(k, v))
+           for k, v in tree.items() if k not in stacked}
+    for key, n in stacked.items():
+        out[key] = [_map(lambda name, a: leaf(name, np.asarray(a)[i]), tree[key])
+                    for i in range(n)]
     return Params(out)

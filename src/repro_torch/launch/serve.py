@@ -1,12 +1,19 @@
 """Serving launcher of the port: batched prefill, then a greedy or sampled
-decode loop, for any ported ``--arch`` (after the JAX package's
+decode loop, for any decoder ``--arch`` (after the JAX package's
 ``launch/serve.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --preset full
 
+The multimodal archs (encdec, vlm) are refused, as the reference's launcher
+refuses them: they are served through their model entry points
+(``models.encdec.prefill``/``decode``, ``models.lm.prefill``/``decode`` with
+``patch_embeds``).
+
 Weights are random, drawn from ``--seed`` on the device, and every matmul
-weight is stored once in the compute dtype (``lm.to_compute_dtype_``).
+weight is stored in the compute dtype as its layer is drawn
+(``lm.init_params``).
 Prompts come from ``--seed + 1`` and sampling from ``--seed + 2``, each an
 explicit ``torch.Generator``.  The decode loop keeps the tokens on the
 device; the host waits only at the end of prefill and of the loop, to time
@@ -20,7 +27,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..configs import ARCHS, NOT_PORTED, get_arch
+from ..configs import ARCHS, get_arch
 from ..device import make_generator, resolve_device
 from ..models import lm
 from ..models.config import ModelConfig
@@ -74,7 +81,7 @@ def generate(params, prompts: torch.Tensor, cfg: ModelConfig, gen_len: int,
 
 def main(argv=None) -> ServeResult:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", required=True, choices=sorted([*ARCHS, *NOT_PORTED]))
+    ap.add_argument("--arch", required=True, choices=sorted(ARCHS))
     ap.add_argument("--preset", choices=["cpu-small", "full"], default="cpu-small")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -86,8 +93,11 @@ def main(argv=None) -> ServeResult:
 
     arch = get_arch(args.arch)
     cfg = arch.smoke if args.preset == "cpu-small" else arch.config
+    if cfg.family in ("encdec", "vlm"):
+        raise SystemExit(f"{args.arch} is {cfg.family}: serve it through its model entry "
+                         f"points (models.encdec, models.lm with patch_embeds)")
     dev = resolve_device(args.device)
-    params = lm.to_compute_dtype_(lm.init_params(make_generator(args.seed, dev), cfg), cfg)
+    params = lm.init_params(make_generator(args.seed, dev), cfg)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=make_generator(args.seed + 1, dev), device=dev)
     res = generate(params, prompts, cfg, args.gen, args.temperature,

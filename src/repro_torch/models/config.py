@@ -1,5 +1,5 @@
 """Model configuration of the LM slice: the fields of the JAX package's
-``models/config.py`` that serving the dense, ssm and hybrid families reads.
+``models/config.py`` that serving its six families reads.
 
 Dtypes are ``torch.dtype``s.  Left out (see ROADMAP, deliberate
 differences): the launcher and sharding fields (``act_shard_spec``,
@@ -44,16 +44,16 @@ class ModelConfig:
     ssm_groups: int = 1
     # hybrid (zamba2): shared attention block applied every k ssm blocks
     shared_attn_every: int = 0
-    # moe (not ported yet: ROADMAP A11)
+    # moe
     n_experts: int = 0
     n_shared_experts: int = 0
     moe_top_k: int = 0
     capacity_factor: float = 1.25
-    # encdec (not ported yet: ROADMAP A11)
+    # encdec (whisper)
     n_enc_layers: int = 0
-    dec_ratio: int = 8
+    dec_ratio: int = 8              # decoder_len = enc_len // dec_ratio
     max_dec_len: int = 4096
-    # vlm (not ported yet: ROADMAP A11)
+    # vlm
     n_img_tokens: int = 0
     # numerics
     dtype: torch.dtype = torch.bfloat16

@@ -1,22 +1,23 @@
-"""Shared building blocks of the LM slice: norms, rotary embeddings,
-attention, MLP, the pre-norm dense layer, and the parameter tree.
+"""Shared building blocks of the LM slice: norms, positions, rotary
+embeddings, attention, MLP, the pre-norm dense layer, and the parameter tree.
 
 Mirrors the JAX package's ``models/layers.py``:
 
 * attention weights keep the unflattened head layout: q/k/v (D, H, hd),
   out (H, hd, D);
 * KV caches are (B, S_max, K, hd) per layer, indexed by position;
-* weights are stored in ``cfg.param_dtype`` and cast to the compute dtype at
-  use (``.to`` is free once ``lm.to_compute_dtype_`` made a copy in it);
-  norms, softmax and rotary run in float32.
+* weights are cast to the compute dtype at use (``.to`` is free for the
+  matmul weights, which ``lm.to_compute_dtype_`` stores in it); norms,
+  softmax and rotary run in float32.
 
-Every no-cache self-attention (forward and prefill) goes through the
-flash-attention op (the CUDA kernel on the card); the cached decode path is
-plain torch (``_sdpa``), as the reference computes it outside any kernel
-(``layers.py:137-169``).  Not ported: ``_proj``'s ``pmm`` branch (training
-with gradient sharding), ``layer_norm`` and ``sinusoidal_pos`` (encdec),
-cross-attention and ``precomputed_kv`` (encdec), and ``_sdpa_q_chunked``,
-which nothing here reaches with the flash kernel on the no-cache path.
+Every attention without a cache goes through the flash-attention op (the
+CUDA kernel on the card): self-attention in forward and prefill, the
+encoder's bidirectional attention, and cross-attention in forward and
+prefill.  Attention against a cache, the decode step's self- and
+cross-attention, is plain torch (``_sdpa``), as the reference computes it
+outside any kernel (``layers.py:137-169``).  Not ported: ``_proj``'s ``pmm``
+branch (training with gradient sharding) and ``_sdpa_q_chunked``, which no
+path without a cache reaches here.
 """
 from __future__ import annotations
 
@@ -30,35 +31,42 @@ from ..kernels.flash_attention.ops import flash_attention
 from .config import ModelConfig
 
 __all__ = [
-    "Params", "normal", "rms_norm", "rotary", "apply_rope", "KVCache", "init_attn",
-    "attention", "init_mlp", "mlp", "init_dense_layer", "dense_layer",
+    "Params", "normal", "rms_norm", "layer_norm", "sinusoidal_pos", "rotary", "apply_rope",
+    "KVCache", "init_attn", "attention", "init_mlp", "mlp", "init_dense_layer", "dense_layer",
 ]
 
 
 class Params(nn.Module):
     """A tree of frozen parameters built from nested dicts, with the
     reference's names: a tensor becomes an ``nn.Parameter`` (no gradient), a
-    dict a ``Params`` and a list an ``nn.ModuleList``.  ``p["q"]`` reads as
-    in the reference's param trees."""
+    dict a ``Params`` and a list an ``nn.ModuleList``; a ``Params`` is kept as
+    it is.  ``p["q"]`` reads as in the reference's param trees."""
 
     def __init__(self, tree: dict):
         super().__init__()
         for name, value in tree.items():
             if isinstance(value, torch.Tensor):
                 self.register_parameter(name, nn.Parameter(value, requires_grad=False))
-            elif isinstance(value, dict):
-                self.add_module(name, Params(value))
+            elif isinstance(value, (dict, Params)):
+                self.add_module(name, _params(value))
             else:
-                self.add_module(name, nn.ModuleList(Params(v) for v in value))
+                self.add_module(name, nn.ModuleList(_params(v) for v in value))
 
     def __getitem__(self, name: str):
         return getattr(self, name)
 
 
-def normal(gen: torch.Generator, shape, cfg: ModelConfig, scale: float) -> torch.Tensor:
-    """``scale * N(0, 1)`` of ``shape`` in ``cfg.param_dtype``, drawn from ``gen``
-    on its device (the reference's ``jax.random.normal(k, shape, dtype) * s``)."""
-    return torch.randn(shape, generator=gen, device=gen.device, dtype=cfg.param_dtype) * scale
+def _params(value) -> Params:
+    return value if isinstance(value, Params) else Params(value)
+
+
+def normal(gen: torch.Generator, shape, cfg: ModelConfig, scale: float,
+           dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``scale * N(0, 1)`` of ``shape`` in ``dtype`` (default ``cfg.param_dtype``),
+    drawn from ``gen`` on its device (the reference's
+    ``jax.random.normal(k, shape, dtype) * s``), scaled in place."""
+    return torch.randn(shape, generator=gen, device=gen.device,
+                       dtype=dtype or cfg.param_dtype).mul_(scale)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -66,6 +74,24 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.T
     var = (x32 * x32).mean(dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * (1.0 + scale.float())).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, unbiased=False, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def sinusoidal_pos(S: int, D: int, dtype: torch.dtype = torch.float32,
+                   device=None) -> torch.Tensor:
+    """(S, D) sinusoidal positions: sin then cos of ``pos / 10000^(2i/D)``."""
+    pos = torch.arange(S, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(D // 2, dtype=torch.float32, device=device)[None, :]
+    angle = pos / torch.pow(10000.0, 2 * dim / D)
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1).to(dtype)
 
 
 def rotary(positions: torch.Tensor, head_dim: int, theta: float):
@@ -139,35 +165,61 @@ def _sdpa(q, k, v, *, causal: bool, q_offset: int = 0) -> torch.Tensor:
 
 def attention(p, x: torch.Tensor, cfg: ModelConfig, *, causal: bool = True,
               cache: Optional[KVCache] = None, pos: Optional[int] = None,
-              collect_kv: bool = False):
-    """Self-attention for forward, prefill and decode.  Returns (out, cache).
+              kv_x: Optional[torch.Tensor] = None, use_rope: bool = True,
+              precomputed_kv: Optional[KVCache] = None, collect_kv: bool = False):
+    """Self- or cross-attention for forward, prefill and decode.  Returns
+    (out, cache).
 
-    Without a cache (forward, prefill) it runs the flash-attention op and,
-    with ``collect_kv``, returns the fresh post-rope K/V as the cache.  With
-    a cache (decode) it writes the new K/V into ``cache`` in place at ``pos``
-    and attends to the prefix ``[0, pos + S)``: the same result as the
-    reference's attention over the padded cache with its ``kv_len`` mask,
-    whose masked keys weigh exactly 0."""
+    * Self-attention (neither ``kv_x`` nor ``precomputed_kv``) projects K/V
+      from ``x`` and applies rope when ``use_rope``.  Without a cache
+      (forward, prefill) it runs the flash-attention op and, with
+      ``collect_kv``, returns the fresh post-rope K/V as the cache.  With a
+      cache (decode) it writes the new K/V into ``cache`` in place at ``pos``
+      and attends to the prefix ``[0, pos + S)``: the same result as the
+      reference's attention over the padded cache with its ``kv_len`` mask,
+      whose masked keys weigh exactly 0.
+    * Cross-attention projects K/V from ``kv_x`` (forward), or reads them
+      from ``precomputed_kv`` (prefill and decode: the encoder's K/V held in
+      the cache); neither applies rope, and precomputed K/V take no k-norm.
+      Precomputed K/V at a decode step (``pos`` given) are attended to with
+      the plain ``_sdpa``, as any cache is; otherwise through the flash op.
+
+    The flash op's causal mask is top-left aligned, so a causal call needs
+    as many keys as queries."""
     B, S, D = x.shape
     q = _proj_heads(x, p["q"])
-    k = _proj_heads(x, p["k"])
-    v = _proj_heads(x, p["v"])
+    if precomputed_kv is not None:
+        k, v = precomputed_kv
+    else:
+        src = x if kv_x is None else kv_x
+        k = _proj_heads(src, p["k"])
+        v = _proj_heads(src, p["v"])
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    offset = 0 if pos is None else pos
-    cos, sin = rotary(torch.arange(S, device=x.device) + offset, cfg.head_dim, cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+        if precomputed_kv is None:
+            k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if use_rope and precomputed_kv is None and kv_x is None:
+        offset = 0 if pos is None else pos
+        cos, sin = rotary(torch.arange(S, device=x.device) + offset, cfg.head_dim,
+                          cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
 
-    if cache is None:
-        o = flash_attention(q, k, v, causal=causal)
-        new_cache = KVCache(k, v) if collect_kv else None
-    else:
+    new_cache = None
+    if cache is not None:
         cache.k[:, pos:pos + S] = k
         cache.v[:, pos:pos + S] = v
         o = _sdpa(q, cache.k[:, :pos + S], cache.v[:, :pos + S], causal=causal, q_offset=pos)
         new_cache = cache
+    elif precomputed_kv is not None and pos is not None:
+        o = _sdpa(q, k, v, causal=causal)
+    else:
+        if causal and k.shape[1] != S:
+            raise ValueError(f"attention: a causal call needs as many keys as queries, "
+                             f"got {k.shape[1]} keys for {S} queries")
+        o = flash_attention(q, k, v, causal=causal)
+        if collect_kv:
+            new_cache = KVCache(k, v)
     H, hd = o.shape[2], o.shape[3]
     out = o.reshape(B, S, H * hd) @ p["out"].to(o.dtype).reshape(H * hd, D)
     return out, new_cache

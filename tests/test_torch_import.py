@@ -25,7 +25,9 @@ def test_port_imports_neither_jax_nor_reference():
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "             or k == 'repro' or k.startswith('repro.'))\n"
         "assert len(names) >= 20, names\n"
-        "for m in ('models.lm', 'models.ssm', 'configs.zamba2_2p7b', 'launch.serve',\n"
+        "for m in ('models.lm', 'models.ssm', 'models.moe', 'models.encdec',\n"
+        "          'configs.zamba2_2p7b', 'configs.qwen2_moe_a2p7b', 'configs.kimi_k2_1t',\n"
+        "          'configs.phi3_vision_4p2b', 'configs.whisper_base', 'launch.serve',\n"
         "          'automl.batched', 'core.baselines', 'core.strategies',\n"
         "          'kernels.flash_attention.kernel', 'kernels.ssd_scan.kernel',\n"
         "          'obs.metrics', 'obs.torchprof', 'launch.flops', 'meta.features',\n"
@@ -83,6 +85,7 @@ def test_entry_points_raise_without_a_card(no_cuda):
         lambda: execute(plan("gen_dst"), X, y),
         lambda: factorize(X, y, device="cuda"),
         lambda: serve.main(["--arch", "mamba2-130m"]),
+        lambda: serve.main(["--arch", "qwen2-moe-a2.7b"]),
         lambda: lm_params_from_numpy({}, configs.get_arch("mamba2-130m").smoke),
         lambda: Scheduler(),
         lambda: SubStratServer(),
