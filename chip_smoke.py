@@ -163,10 +163,31 @@ Phases, in order; any failure exits non-zero and prints no result:
    token), phi-3-vision at full width and 8 layers with patch embeddings,
    whisper-base whole.
 
+15. Training (``train/``, ``data/pipeline.py``, the training half of
+   ``distributed/``, ``launch/train.py``).  (a) The zamba2-2.7b and
+   granite-3-2b smoke configs in float32: three steps of two microbatches
+   from the same params on the card and the CPU, loss and grad norm within
+   1e-4 relative, params within 2 lr per step; B3 and B4 launched 2 x 3 x
+   their count per forward.  (b) ``launch.train.main`` for zamba2-2.7b at
+   full width (54 layers, bf16 compute, float32 params, AdamW; 4 x 512
+   positions a step in 2 microbatches; a 2048-sequence corpus cut to 256 by
+   Gen-DST; a checkpoint every 4 steps, one of the 29 GB state) for 4
+   steps, launch counters zeroed
+   before and read after: B1 and B2 in the subset selection, B3 18 and B4
+   108 per step, no call of any kernel's plain version; finite loss and
+   grad norm; peak memory.  Then the same with 6 steps must resume at step
+   4 from the checkpoint: its first loss is the checkpointed state's on the
+   loader's step-4 batch (the loader's state restored).  (c) Warm steps: ms/step, tokens/s and MFU
+   (``launch/flops`` over 989 TFLOP/s, a reading); one step under the
+   profiler (busy share, top kernels, B3's and B4's shares and those of
+   ``_sdpa``'s and ``_ssd_chunked``'s recomputation in the backward); the
+   host waits inside one step (sync-debug "warn").
+
 Then it prints the ``{"kernels": [...]}`` line (B3's entry also carries its
 times at the other prefill shapes and its launches per prefill of each
-served model), the ``nvidia-smi`` line and, last, ``{"ok": true, "device":
-{...}}``.  Imports nothing of JAX.
+served model; every entry its launches in the training run and per
+training step), the ``nvidia-smi`` line and, last, ``{"ok": true,
+"device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -1925,6 +1946,400 @@ def phase14_families(torch, dev, K) -> dict:
     return per_prefill
 
 
+# phase 15: training.  The launcher's arguments at full width (zamba2-2.7b,
+# all 54 layers, bf16 compute, float32 params and AdamW): 4 sequences of 512
+# positions a step in 2 microbatches, a 2048-sequence corpus cut to 256 by
+# Gen-DST, a checkpoint every 4 steps: the state is 29 GB (params, m, v in
+# float32), and a run that writes more than 45 GiB of checkpoints may not
+# fit the machine's disk, so the run writes one checkpoint (after step 3),
+# which the second run resumes from
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM, TRAIN_STEPS, TRAIN_RESUME_STEPS = 4, 512, 2, 4, 6
+TRAIN_CORPUS, TRAIN_SUBSET = 2048, 256
+TRAIN_ARGV = ["--arch", "zamba2-2.7b", "--preset", "full", "--batch", str(TRAIN_BATCH),
+              "--seq", str(TRAIN_SEQ), "--accum", str(TRAIN_ACCUM), "--corpus-seqs",
+              str(TRAIN_CORPUS), "--substrat-subset", str(TRAIN_SUBSET), "--ckpt-every", "4",
+              "--log-every", "1", "--device", "cuda", "--seed", "0"]
+# small size, card (kernels) against CPU (plain versions), float32: loss and
+# grad norm within this relative difference; params within 2 lr per step,
+# the most an Adam step can move a parameter whose near-zero gradient takes
+# another sign on the other device (C3)
+TRAIN_CARD_CPU_RTOL = 1e-4
+TRAIN_SMALL_LR, TRAIN_SMALL_STEPS = 1e-3, 3
+# the resumed run's first logged loss (4 decimals) against the checkpointed
+# state's loss on the same batch, recomputed in the same call
+TRAIN_RESUME_TOL = 1e-3
+# each kernel's plain version (kernels/*/ref.py), watched during training
+PLAIN_VERSIONS = {
+    "repro_torch.kernels.entropy.ref": ("masked_histogram_ref",),
+    "repro_torch.kernels.gen_dst.ref": ("fused_delta_fitness_ref",),
+    "repro_torch.kernels.flash_attention.ref": ("attention_ref",),
+    "repro_torch.kernels.ssd_scan.ref": ("ssd_scan_ref", "ssd_scan_model_ref",
+                                         "ssd_scan_chunked_ref"),
+}
+
+
+class plain_versions_counted:
+    """Within the block, every kernel's plain version, wherever a
+    ``repro_torch`` module holds it, counts its calls into ``self.calls``."""
+
+    def __enter__(self):
+        import importlib
+        self.calls, self._patched = {}, []
+        for mod_name, names in PLAIN_VERSIONS.items():
+            ref = importlib.import_module(mod_name)
+            for name in names:
+                fn = getattr(ref, name)
+
+                def counted(*args, _fn=fn, _name=name, **kw):
+                    self.calls[_name] = self.calls.get(_name, 0) + 1
+                    return _fn(*args, **kw)
+                holders = [(m, attr) for m in list(sys.modules.values())
+                           if getattr(m, "__name__", "").startswith("repro_torch")
+                           for attr, val in list(vars(m).items()) if val is fn]
+                for m, attr in holders:
+                    setattr(m, attr, counted)
+                    self._patched.append((m, attr, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for m, attr, fn in self._patched:
+            setattr(m, attr, fn)
+        return False
+
+
+def _run_logged(fn, argv):
+    """``fn(argv)`` with its standard output echoed and kept; returns the
+    result, the output and the wall seconds (ending in a synchronise)."""
+    import contextlib
+    import io
+    import torch
+
+    class Tee(io.StringIO):
+        def write(self, s):
+            sys.__stdout__.write(s)
+            return super().write(s)
+
+    buf = Tee()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = fn(argv)
+    torch.cuda.synchronize()
+    return out, buf.getvalue(), time.perf_counter() - t0
+
+
+def _step_lines(text: str) -> list:
+    """(step, loss, grad norm) of each ``step N loss L gnorm G T ms/step`` line."""
+    out = []
+    for line in text.splitlines():
+        f = line.split()
+        if len(f) == 8 and f[0] == "step" and f[2] == "loss" and f[4] == "gnorm":
+            out.append((int(f[1]), float(f[3]), float(f[5])))
+    return out
+
+
+def phase15_training(torch, dev, K) -> dict:
+    """Training on the card: (a) the zamba2-2.7b and granite-3-2b smoke
+    configs, three steps on the card against the CPU from the same float32
+    params; (b) ``launch.train.main`` for zamba2-2.7b at full width (subset
+    selection through B1/B2, B3/B4 in every forward, checkpoints), then
+    resumed from its checkpoint; (c) warm steps timed, one profiled and one
+    under sync-debug "warn".  Returns each kernel's launches in the
+    training run."""
+    import copy
+    import dataclasses
+    import shutil
+    import tempfile
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import (
+        LoaderState, ShardedLoader, SyntheticCorpus, select_corpus_subset,
+    )
+    from repro_torch.device import make_generator
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.train.optimizer import adamw, leaf_groups
+    from repro_torch.train.train_step import TrainState, make_train_step, xent_loss
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+
+    # (a) small size: the same float32 params and batches on the card and the CPU
+    for arch_id in ("zamba2-2.7b", "granite-3-2b"):
+        cfg = dataclasses.replace(get_arch(arch_id).smoke, dtype=torch.float32)
+        base = lm.init_params(make_generator(0), cfg, for_training=True)
+        toks = torch.randint(0, cfg.vocab_size, (TRAIN_SMALL_STEPS, 4, 33),
+                             generator=make_generator(1))
+        opt = adamw(lambda s: TRAIN_SMALL_LR)
+        runs = []
+        for d in (cpu, dev):
+            params = copy.deepcopy(base).to(d)
+            state = TrainState(torch.zeros((), dtype=torch.int32), params, opt.init(params))
+            step = make_train_step(cfg, opt, accum_steps=2)
+            K.reset_launch_counts()
+            metrics = []
+            for s in range(TRAIN_SMALL_STEPS):
+                batch = {"tokens": toks[s, :, :-1].to(d), "labels": toks[s, :, 1:].to(d)}
+                state, m = step(state, batch)
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            runs.append((metrics, K.launch_counts(), leaf_groups(state.params)))
+        (m_cpu, _, g_cpu), (m_dev, launches, g_dev) = runs
+        loss_err = max(abs(a[0] - b[0]) / abs(a[0]) for a, b in zip(m_dev, m_cpu))
+        gn_err = max(abs(a[1] - b[1]) / abs(a[1]) for a, b in zip(m_dev, m_cpu))
+        p_err = max((a.value().cpu() - b.value()).abs().max().item()
+                    for a, b in zip(g_dev, g_cpu))
+        p_tol = 2 * TRAIN_SMALL_LR * TRAIN_SMALL_STEPS
+        n_attn = (cfg.n_layers // cfg.shared_attn_every if cfg.family == "hybrid"
+                  else cfg.n_layers)
+        n_ssd = cfg.n_layers if cfg.family == "hybrid" else 0
+        per = 2 * TRAIN_SMALL_STEPS
+        print(f"training smoke ({cfg.name}, float32, {TRAIN_SMALL_STEPS} steps of 2 "
+              f"microbatches): loss rel diff {loss_err:.3e}, grad norm rel diff {gn_err:.3e}, "
+              f"params max abs diff {p_err:.3e}; launches {launches}")
+        if not (loss_err <= TRAIN_CARD_CPU_RTOL and gn_err <= TRAIN_CARD_CPU_RTOL
+                and p_err <= p_tol):
+            fail(f"training smoke {cfg.name}: card and CPU differ (loss {loss_err}, grad norm "
+                 f"{gn_err}, limit {TRAIN_CARD_CPU_RTOL} relative; params {p_err}, limit "
+                 f"{p_tol})")
+        if (launches["flash_attention"], launches["ssd_scan"]) != (per * n_attn, per * n_ssd):
+            fail(f"training smoke {cfg.name}: launches {launches}, expected flash_attention "
+                 f"{per * n_attn} and ssd_scan {per * n_ssd}")
+    print(f"  ({time.perf_counter() - t_phase:.1f} s into phase 15)")
+
+    # (b) the launcher at full width, then resumed from its checkpoint
+    arch = get_arch("zamba2-2.7b")
+    full = arch.config
+    n_attn = full.n_layers // full.shared_attn_every
+    ckpt_dir = tempfile.mkdtemp(prefix="repro_torch_train_")
+    try:
+        _free(torch)
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        argv = TRAIN_ARGV + ["--steps", str(TRAIN_STEPS), "--ckpt-dir", ckpt_dir]
+        print(f"  clocks before training: {smi_state()}")
+        with plain_versions_counted() as plain:
+            state, text, wall = _run_logged(train.main, argv)
+        launches = K.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"  clocks after training: {smi_state()}")
+        steps = _step_lines(text)
+        print(f"main path launch.train.main({' '.join(argv)}): {wall:.3f} s; launches "
+              f"{launches}; peak memory {peak:.2f} GiB; plain versions called {plain.calls}")
+        if plain.calls:
+            fail(f"training on the card called kernels' plain versions: {plain.calls}")
+        if [s for s, _, _ in steps] != list(range(TRAIN_STEPS)):
+            fail(f"training: logged steps {steps}, expected 0..{TRAIN_STEPS - 1}")
+        if not all(math.isfinite(l) and math.isfinite(g) for _, l, g in steps):
+            fail(f"training: loss or grad norm not finite: {steps}")
+        if int(state.step) != TRAIN_STEPS:
+            fail(f"training: final state at step {int(state.step)}, expected {TRAIN_STEPS}")
+        want = {"flash_attention": TRAIN_ACCUM * n_attn * TRAIN_STEPS,
+                "ssd_scan": TRAIN_ACCUM * full.n_layers * TRAIN_STEPS}
+        if {k: launches[k] for k in want} != want:
+            fail(f"training: launches {launches}, expected {want} "
+                 f"({TRAIN_ACCUM * n_attn} and {TRAIN_ACCUM * full.n_layers} per step)")
+        if launches["masked_histogram"] <= 0 or launches["fused_delta_fitness"] <= 0:
+            fail(f"training: the subset selection launched no Gen-DST kernel: {launches}")
+        for s, loss, gn in steps:
+            print(f"  step {s}: loss {loss:.4f}, grad norm {gn:.4f}")
+        per_step = {k: launches[k] // TRAIN_STEPS for k in want}
+        print(f"  per step: flash_attention {per_step['flash_attention']}, ssd_scan "
+              f"{per_step['ssd_scan']}; subset selection: masked_histogram "
+              f"{launches['masked_histogram']}, fused_delta_fitness "
+              f"{launches['fused_delta_fitness']}  ({time.perf_counter() - t_phase:.1f} s "
+              f"into phase 15)")
+        # the loss the resumed run must log first: the checkpointed state (this
+        # one) on the batch the loader gives at step TRAIN_STEPS, from the
+        # corpus and subset the launcher makes
+        corpus = SyntheticCorpus(TRAIN_CORPUS, TRAIN_SEQ + 1, full.vocab_size, seed=0)
+        subset = select_corpus_subset(corpus, TRAIN_SUBSET, generator=make_generator(0, dev),
+                                      sample_rows=min(TRAIN_CORPUS, 4096), device=dev)
+        loader = ShardedLoader(corpus, TRAIN_BATCH, seed=0, subset=subset)
+        loader.restore(LoaderState(TRAIN_STEPS))
+        nxt = {k: torch.as_tensor(v, device=dev).chunk(TRAIN_ACCUM)
+               for k, v in loader.next().items()}
+        with torch.no_grad():
+            want = sum(float(xent_loss(lm.forward(state.params, {"tokens": t}, full), lab))
+                       for t, lab in zip(nxt["tokens"], nxt["labels"])) / TRAIN_ACCUM
+        del state, nxt
+        _free(torch)
+
+        argv = TRAIN_ARGV + ["--steps", str(TRAIN_RESUME_STEPS), "--ckpt-dir", ckpt_dir]
+        K.reset_launch_counts()
+        state, text, wall = _run_logged(train.main, argv)
+        resumed = _step_lines(text)
+        print(f"resumed launch.train.main(... --steps {TRAIN_RESUME_STEPS}): {wall:.3f} s; "
+              f"launches {K.launch_counts()}")
+        if (f"[ckpt] resumed from step {TRAIN_STEPS - 1}" not in text
+                or [s for s, _, _ in resumed] != list(range(TRAIN_STEPS, TRAIN_RESUME_STEPS))
+                or int(state.step) != TRAIN_RESUME_STEPS):
+            fail(f"training: the second run did not resume at step {TRAIN_STEPS}: "
+                 f"steps {resumed}, final step {int(state.step)}")
+        if not all(math.isfinite(l) and math.isfinite(g) for _, l, g in resumed):
+            fail(f"training: resumed loss or grad norm not finite: {resumed}")
+        # the log prints 4 decimals
+        print(f"  resumed step {TRAIN_STEPS} loss {resumed[0][1]:.4f}; the checkpointed "
+              f"state on the loader's step-{TRAIN_STEPS} batch {want:.6f}")
+        if not abs(resumed[0][1] - want) <= TRAIN_RESUME_TOL:
+            fail(f"training: the resumed run's first loss {resumed[0][1]} is not the "
+                 f"checkpointed state's {want} on the loader's step-{TRAIN_STEPS} batch")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    print(f"  ({time.perf_counter() - t_phase:.1f} s into phase 15)")
+
+    # (c) warm steps on the resumed state: timed, profiled, host waits
+    _train_warm(torch, dev, state, peak)
+    del state
+    _free(torch)
+    print(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "per_step": per_step}
+
+
+TRAIN_RECOMPUTE = ("_sdpa recompute", "_ssd_chunked recompute")
+B4_KERNELS = ("ssd_chunk_state_kernel", "ssd_state_pass_kernel", "ssd_chunk_scan_kernel")
+
+
+def _train_warm(torch, dev, state, peak: float) -> None:
+    """Warm full-width zamba2-2.7b steps on ``state``: three timed (ms/step,
+    tokens/s, MFU), one with the largest log-decay span its SSD backward
+    meets (ROADMAP C4), one under the profiler (busy share, top kernels, B3's and
+    B4's shares of the device time and those of the backward's
+    recomputations through ``_sdpa`` and ``_ssd_chunked``, each labelled by a
+    ``record_function`` range around the autograd Function's backward), one
+    under sync-debug "warn" (the host waits inside a step)."""
+    import bisect
+    import collections
+    import warnings
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.configs import get_arch
+    from repro_torch.device import make_generator
+    from repro_torch.launch.flops import model_flops
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.models.layers import _FlashAttention
+    from repro_torch.models.ssm import _SSDScan
+    from repro_torch.train.optimizer import make_optimizer, warmup_cosine
+    from repro_torch.train.train_step import make_train_step
+
+    arch = get_arch("zamba2-2.7b")
+    full = arch.config
+    opt = make_optimizer(arch.optimizer, warmup_cosine(arch.peak_lr, warmup=20, total=100))
+    step_fn = make_train_step(full, opt, accum_steps=TRAIN_ACCUM)
+    toks = torch.randint(0, full.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                         generator=make_generator(5, dev), device=dev)
+    batch = {"tokens": toks[:, :-1].contiguous(), "labels": toks[:, 1:].contiguous()}
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        float(m["loss"])
+        times.append(time.perf_counter() - t0)
+    ms = sorted(times)[1] * 1e3
+    flops = model_flops(full, ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train"))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"training zamba2-2.7b (full width, {full.n_layers} layers, bf16 compute, float32 "
+          f"params, AdamW, batch {TRAIN_BATCH} x {TRAIN_SEQ} in {TRAIN_ACCUM} microbatches), "
+          f"warm: {ms:.3f} ms/step (median of {', '.join(f'{t * 1e3:.3f}' for t in times)}), "
+          f"{tokens * 1e3 / ms:.1f} tokens/s, {flops / 1e12:.3f} TFLOP per step "
+          f"(launch/flops), MFU {flops / (ms * 1e-3) / BF16_OPS_PER_S:.4f} of "
+          f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s (a reading, no claim); peak memory "
+          f"{peak:.2f} GiB  [{smi_line()}]")
+
+    originals = (_FlashAttention.backward, _SSDScan.backward)
+
+    # the largest log-decay span inside a chunk that the backward meets:
+    # past 88.7 the reference's _ssd_chunked overflows exp (ROADMAP C4)
+    spans_seen = []
+
+    def span_recorded(ctx, *grads):
+        x, dt, a = ctx.saved_tensors[:3]
+        Q = min(full.ssm_chunk, x.shape[1])
+        la = torch.cumsum((dt * a).reshape(dt.shape[0], -1, Q, dt.shape[2]), dim=2)
+        spans_seen.append((la[:, :, 0] - la[:, :, -1]).max())
+        return originals[1](ctx, *grads)
+    _SSDScan.backward = staticmethod(span_recorded)
+    try:
+        state, m = step_fn(state, batch)
+    finally:
+        _SSDScan.backward = staticmethod(originals[1])
+    span = torch.stack(spans_seen).max().item()
+    print(f"  largest log-decay span in a chunk over one step's {len(spans_seen)} SSD "
+          f"backward calls: {span:.2f} (exp overflows float32 past 88.7); grad norm "
+          f"{float(m['grad_norm']):.4f}")
+    if not math.isfinite(float(m["grad_norm"])):
+        fail(f"training: a warm step's grad norm is not finite (largest span {span})")
+
+    def labelled(label, fn):
+        def backward(ctx, *grads):
+            with record_function(label):
+                return fn(ctx, *grads)
+        return staticmethod(backward)
+    _FlashAttention.backward = labelled(TRAIN_RECOMPUTE[0], originals[0])
+    _SSDScan.backward = labelled(TRAIN_RECOMPUTE[1], originals[1])
+    try:
+        print("profiled warm training step:")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        _FlashAttention.backward, _SSDScan.backward = (staticmethod(f) for f in originals)
+    # device events: the ranges' spans on the device timeline, and the kernels
+    # and copies (one stream: a kernel inside a range's span is the range's)
+    spans = collections.defaultdict(list)
+    ops = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type().name != "CUDA":
+            continue
+        start, dur = e.start_ns(), e.duration_ns()
+        if e.name() in TRAIN_RECOMPUTE:
+            spans[e.name()].append((start, start + dur))
+        else:
+            ops.append((e.name(), start, start + dur, dur / 1e3))
+    busy = sum(us for *_, us in ops)
+    if busy <= 0:
+        fail("training: the profiler recorded no device time for a step")
+    by_name = collections.defaultdict(lambda: [0, 0.0])
+    for name, _, _, us in ops:
+        by_name[name][0] += 1
+        by_name[name][1] += us
+    print(f"  wall {wall:.3f} s (profiler on), device busy {busy / 1e6:.4f} s, busy share "
+          f"{busy / 1e6 / wall:.4f}; {len(ops)} device operations")
+    for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]:
+        print(f"    {us / 1e3:10.3f} ms  {n:6d} x  {name[:90]}")
+    shares = {"B3 (flash_attention)": sum(us for name, _, _, us in ops
+                                          if "flash_attention" in name),
+              "B4 (ssd_scan)": sum(us for name, _, _, us in ops
+                                   if any(k in name for k in B4_KERNELS))}
+    for label in TRAIN_RECOMPUTE:
+        iv = sorted(spans[label])
+        starts = [a for a, _ in iv]
+        inside = 0.0
+        for _, a, b, us in ops:
+            i = bisect.bisect_right(starts, a) - 1
+            if i >= 0 and b <= iv[i][1]:
+                inside += us
+        shares[f"{label} ({len(iv)} ranges)"] = inside
+    print("  shares of the step's device time: " + ", ".join(
+        f"{k} {us / 1e3:.3f} ms ({us / busy:.4f})" for k, us in shares.items()))
+    if not all(us > 0 for us in shares.values()):
+        fail(f"training: the profiled step is missing a kernel or a recomputation: {shares}")
+
+    # host waits inside one step
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            state, m = step_fn(state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    waits = [w for w in caught if "synchroniz" in str(w.message)]
+    where = collections.Counter(f"{Path(w.filename).name}:{w.lineno}" for w in waits)
+    print(f"  host waits inside one training step: {len(waits)}"
+          + (": " + ", ".join(f"{k} x{v}" for k, v in where.most_common()) if waits else ""))
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2300,6 +2715,14 @@ def main() -> None:
     per_prefill = phase14_families(torch, dev, K)
     fa = next(e for e in kernels if e["name"] == "flash_attention")
     fa["launches_per_prefill"] = {"zamba2-2.7b": fa["launches"], **per_prefill}
+
+    # --- 15. training: zamba2-2.7b at full width, checkpointed and resumed ---------
+    training = phase15_training(torch, dev, K)
+    for entry in kernels:
+        entry["launches_training_run"] = training["launches"][entry["name"]]
+        entry["launches_per_train_step"] = training["per_step"].get(entry["name"], 0)
+        if entry["launches_training_run"] <= 0:
+            fail(f"{entry['name']} was not launched by the training run")
 
     print(json.dumps({"kernels": kernels}))
     print(smi_line())

@@ -12,7 +12,10 @@ into the port's tensors here:
   ``centroid`` ``{"cent"}``;
 * ``lm_params_from_numpy`` — the parameters of an LM of any family
   (``models/lm.py``, ``models/encdec.py``) from the reference's stacked
-  param tree.
+  param tree;
+* ``train_state_from_numpy`` — a ``TrainState`` (step, params, optimizer
+  state) from the reference's, so a step taken from a mid-run state can be
+  held against the reference's.
 """
 from __future__ import annotations
 
@@ -23,8 +26,10 @@ from .core.measures import CodedDataset
 from .device import DeviceLike, resolve_device
 from .models.config import ModelConfig
 from .models.layers import Params
+from .train.train_step import TrainState
 
-__all__ = ["coded_from_numpy", "params_from_numpy", "lm_params_from_numpy"]
+__all__ = ["coded_from_numpy", "params_from_numpy", "lm_params_from_numpy",
+           "train_state_from_numpy"]
 
 _PARAM_KEYS = {
     "logreg": ("w", "b"),
@@ -104,3 +109,28 @@ def lm_params_from_numpy(tree, cfg: ModelConfig, device: DeviceLike = None) -> P
         out[key] = [_map(lambda name, a: leaf(name, np.asarray(a)[i]), tree[key])
                     for i in range(n)]
     return Params(out)
+
+
+# the optimizer state's entries of each optimizer (``train/optimizer.py``)
+_OPT_KEYS = {"adamw": ({"m", "v"},), "adafactor": ({"v"}, {"v", "m"})}
+
+
+def train_state_from_numpy(step, params_tree, opt_state, cfg: ModelConfig,
+                           optimizer_name: str, device: DeviceLike = None):
+    """The port's ``TrainState`` on ``device`` from the reference's, as numpy
+    (``jax.tree.map(np.asarray, state)``): the step, the params through
+    ``lm_params_from_numpy``, and the optimizer state of ``optimizer_name``
+    (AdamW ``{"m", "v"}``, Adafactor ``{"v"}`` with ``vr``/``vc`` or ``v``
+    per leaf, and ``m`` with ``beta1``).  The port keeps the optimizer state
+    in the reference's layout, lists aligned with the reference's stacked
+    leaves (``train/optimizer.py``), so each entry comes across as a float32
+    tensor of the same shape."""
+    if set(opt_state) not in _OPT_KEYS.get(optimizer_name, ()):
+        raise ValueError(f"optimizer state with entries {sorted(opt_state)} is not "
+                         f"{optimizer_name!r}'s")
+    dev = resolve_device(device)
+    leaf = lambda x: _tensor(x, np.float32, dev)   # noqa: E731
+    state = {k: [{n: leaf(a) for n, a in e.items()} if isinstance(e, dict) else leaf(e)
+                 for e in entries] for k, entries in opt_state.items()}
+    return TrainState(torch.tensor(int(np.asarray(step)), dtype=torch.int32),
+                      lm_params_from_numpy(params_tree, cfg, dev), state)

@@ -1,3 +1,3 @@
-"""What the serving tier needs of the JAX package's ``distributed/``:
-atomic on-disk checkpoints (``checkpoint``) and the shard placement and
-heartbeat bookkeeping of its fault handling (``fault``)."""
+"""The single-card part of the JAX package's ``distributed/``: atomic
+on-disk checkpoints (``checkpoint``), and shard placement, heartbeats and the
+checkpointed training loop (``fault``)."""

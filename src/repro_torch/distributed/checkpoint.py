@@ -1,8 +1,6 @@
-"""Atomic, integrity-checked checkpoints on disk (DESIGN.md §14.5).
-
-The port of what the serving tier needs of the JAX package's
-``distributed/checkpoint.py``, on the same on-disk format, so either
-package restores the other's checkpoints::
+"""Atomic, integrity-checked checkpoints on disk (DESIGN.md §14.5), after
+the JAX package's ``distributed/checkpoint.py``, on the same on-disk format,
+so either package restores the other's checkpoints::
 
   <dir>/step_<N>/
       manifest.json      — tree structure, shapes, dtypes, per-leaf sha256
@@ -11,44 +9,71 @@ package restores the other's checkpoints::
 
 Writes go to ``step_<N>.tmp`` and are renamed into place, so a crash mid-
 write never corrupts the latest checkpoint; ``keep`` prunes the oldest
-complete ones.  ``restore_latest_untyped`` verifies the hashes and falls
-back to the previous complete checkpoint on a mismatch.
+complete ones.  The restores verify the hashes and fall back to the
+previous complete checkpoint on a mismatch.
 
 A tree is nested dicts (leaves in sorted key order, as ``jax.tree`` walks
-them), lists and tuples over numpy arrays or tensors (copied to the host).
-Leaves keep numpy's own dtypes: a dtype numpy lacks (``bfloat16``) raises
-``TypeError``.  The template-typed ``restore_latest``, ``restore_resharded``
-and the asynchronous ``CheckpointManager`` serve training and come with it.
+them), lists, tuples (a ``TrainState`` among them) and ``Params`` (walked as
+the dict of its parameters and children, a layer list as a list) over numpy
+arrays or tensors (copied to the host).  A ``bfloat16`` leaf, which numpy
+lacks, is stored as the reference stores it: its bytes as a uint8 array,
+the logical dtype and shape in the manifest.
+
+* ``restore_latest(dir, template)`` returns the tree typed by the template:
+  its structure, each leaf on the template leaf's device in its dtype.
+* ``restore_latest_untyped`` returns the leaves as host arrays in manifest
+  order (a ``bfloat16`` leaf as a CPU ``torch.bfloat16`` tensor).
+* ``CheckpointManager.save_async`` copies the state to the host once and
+  writes it on a thread.
+
+Leaves are written, and read and verified, by a pool of threads: each leaf
+is hashed as it is written and as it is read, never read back, so its
+bytes cross memory once and the hashing, which bounds the rate of a large
+state, runs on several cores.
+
+``restore_resharded`` (onto a device mesh) comes with the mesh slice.
 """
 from __future__ import annotations
 
 import hashlib
+import io
 import json
 import os
 import shutil
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Any, List, Optional, Tuple
+from typing import Any, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
-__all__ = ["save_checkpoint", "restore_latest_untyped", "latest_step"]
+from ..models.layers import Params
+
+__all__ = ["save_checkpoint", "restore_latest", "restore_latest_untyped", "latest_step",
+           "CheckpointManager"]
 
 _NATIVE_DTYPES = {
     "float64", "float32", "float16", "int64", "int32", "int16", "int8",
     "uint64", "uint32", "uint16", "uint8", "bool",
 }
+# dtypes numpy lacks, stored as uint8 views (the reference's ml_dtypes names)
+_VIEW_DTYPES = {"bfloat16": torch.bfloat16}
+_IO_THREADS = min(8, os.cpu_count() or 1)
 
 
 def _flatten(tree: Any, leaves: List[Any]) -> str:
     """Append ``tree``'s leaves to ``leaves`` in ``jax.tree`` order and
     return the structure's description (``*`` for a leaf)."""
+    if isinstance(tree, Params):
+        tree = tree.entries()
     if isinstance(tree, dict):
         return "{" + ", ".join(f"{k!r}: {_flatten(tree[k], leaves)}"
                                for k in sorted(tree)) + "}"
-    if isinstance(tree, (list, tuple)):
+    if isinstance(tree, (list, tuple, nn.ModuleList)):
         inner = ", ".join(_flatten(v, leaves) for v in tree)
-        if isinstance(tree, list):
+        if isinstance(tree, (list, nn.ModuleList)):
             return f"[{inner}]"
         return f"({inner},)" if len(tree) == 1 else f"({inner})"
     if tree is None:
@@ -57,18 +82,37 @@ def _flatten(tree: Any, leaves: List[Any]) -> str:
     return "*"
 
 
-def _host(leaf: Any) -> np.ndarray:
+def _unflatten(template: Any, leaves: Iterator[Any]) -> Any:
+    """``template``'s structure over the next leaves of ``leaves``."""
+    if isinstance(template, Params):
+        named = template.entries()
+        return Params({k: _unflatten(named[k], leaves) for k in sorted(named)})
+    if isinstance(template, dict):
+        return {k: _unflatten(template[k], leaves) for k in sorted(template)}
+    if isinstance(template, (list, nn.ModuleList)):
+        return [_unflatten(v, leaves) for v in template]
+    if isinstance(template, tuple):
+        values = [_unflatten(v, leaves) for v in template]
+        return type(template)(*values) if hasattr(template, "_fields") else tuple(values)
+    if template is None:
+        return None
+    return next(leaves)
+
+
+def _host(leaf: Any) -> Tuple[np.ndarray, List[int], str]:
+    """The array written for ``leaf``, its logical shape and dtype name."""
     if isinstance(leaf, torch.Tensor):
-        if leaf.dtype == torch.bfloat16:
-            raise TypeError("checkpoint leaf of dtype torch.bfloat16 has no "
-                            "native numpy dtype")
-        arr = leaf.detach().cpu().numpy()
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            data = t.contiguous().reshape(-1) if t.dim() == 0 else t.contiguous()
+            return data.view(torch.uint8).numpy(), list(t.shape), "bfloat16"
+        arr = t.numpy()
     else:
         arr = np.asarray(leaf)
     if str(arr.dtype) not in _NATIVE_DTYPES:
         raise TypeError(f"checkpoint leaf of dtype {arr.dtype} has no native "
                         f"numpy dtype")
-    return arr
+    return arr, list(arr.shape), str(arr.dtype)
 
 
 def _steps(ckpt_dir: Path) -> List[int]:
@@ -76,6 +120,28 @@ def _steps(ckpt_dir: Path) -> List[int]:
     return sorted(int(p.name.split("_")[1])
                   for p in ckpt_dir.glob("step_????????")
                   if (p / "COMMIT").exists())
+
+
+class _HashingFile:
+    """A binary file that hashes what is written to it."""
+
+    def __init__(self, f):
+        self.f, self.sha = f, hashlib.sha256()
+
+    def write(self, b) -> int:
+        self.sha.update(b)
+        return self.f.write(b)
+
+
+def _write_leaf(path: Path, i: int, leaf: Any) -> dict:
+    """Write leaf ``i`` as ``leaf_<i>.npy`` (the bytes ``np.save`` writes to a
+    path) and return its manifest record."""
+    arr, shape, dtype = _host(leaf)
+    fname = f"leaf_{i}.npy"
+    with open(path / fname, "wb") as f:
+        out = _HashingFile(f)
+        np.save(out, arr)
+    return {"file": fname, "shape": shape, "dtype": dtype, "sha256": out.sha.hexdigest()}
 
 
 def save_checkpoint(ckpt_dir, step: int, state: Any, *, keep: int = 3) -> Path:
@@ -91,15 +157,9 @@ def save_checkpoint(ckpt_dir, step: int, state: Any, *, keep: int = 3) -> Path:
 
     leaves: List[Any] = []
     treedef = f"PyTreeDef({_flatten(state, leaves)})"
-    manifest = {"step": step, "treedef": treedef, "leaves": []}
-    for i, leaf in enumerate(leaves):
-        arr = _host(leaf)
-        fname = f"leaf_{i}.npy"
-        np.save(tmp / fname, arr)
-        digest = hashlib.sha256((tmp / fname).read_bytes()).hexdigest()
-        manifest["leaves"].append(
-            {"file": fname, "shape": list(arr.shape), "dtype": str(arr.dtype),
-             "sha256": digest})
+    with ThreadPoolExecutor(_IO_THREADS) as pool:
+        records = list(pool.map(lambda i: _write_leaf(tmp, i, leaves[i]), range(len(leaves))))
+    manifest = {"step": step, "treedef": treedef, "leaves": records}
     (tmp / "manifest.json").write_text(json.dumps(manifest))
     (tmp / "COMMIT").write_text("ok")
     if final.exists():
@@ -120,13 +180,74 @@ def latest_step(ckpt_dir) -> Optional[int]:
     return steps[-1] if steps else None
 
 
+def _load_leaf(path: Path, rec: dict, verify: bool):
+    """One leaf of a checkpoint directory: a numpy array, or a CPU tensor
+    for a dtype numpy lacks."""
+    f = path / rec["file"]
+    data = f.read_bytes()
+    if verify and hashlib.sha256(data).hexdigest() != rec["sha256"]:
+        raise IOError(f"hash mismatch in {f}")
+    arr = np.load(io.BytesIO(data))
+    if rec["dtype"] in _VIEW_DTYPES:
+        out = torch.from_numpy(arr).view(_VIEW_DTYPES[rec["dtype"]]).reshape(rec["shape"])
+    elif rec["dtype"] in _NATIVE_DTYPES:
+        out = arr
+    else:
+        raise TypeError(f"checkpoint leaf {f} has dtype {rec['dtype']}, which the port "
+                        f"does not read")
+    if list(out.shape) != list(rec["shape"]):
+        raise ValueError(f"shape mismatch {tuple(out.shape)} vs {rec['shape']}")
+    return out
+
+
+def _typed(arr, like):
+    """``arr`` (numpy or a CPU tensor) on ``like``'s device in its dtype."""
+    if isinstance(like, torch.Tensor):
+        return torch.as_tensor(arr).to(device=like.device, dtype=like.dtype)
+    return np.asarray(arr, dtype=np.asarray(like).dtype)
+
+
+def restore_latest(ckpt_dir, template: Any, *, verify: bool = True
+                   ) -> Optional[Tuple[Any, int]]:
+    """Restore the newest complete, integrity-valid checkpoint as
+    ``(tree, step)``: ``template``'s structure, each leaf on its template
+    leaf's device and in its dtype.  A checkpoint whose hashes, leaf count
+    or shapes do not match is skipped in favour of an older complete one;
+    None when none is left."""
+    ckpt_dir = Path(ckpt_dir)
+    if not ckpt_dir.exists():
+        return None
+    like: List[Any] = []
+    _flatten(template, like)
+    for s in reversed(_steps(ckpt_dir)):
+        path = ckpt_dir / f"step_{s:08d}"
+        try:
+            manifest = json.loads((path / "manifest.json").read_text())
+            if len(manifest["leaves"]) != len(like):
+                raise ValueError("checkpoint/template leaf count mismatch")
+
+            def load(i):
+                arr = _load_leaf(path, manifest["leaves"][i], verify)
+                if list(arr.shape) != list(np.shape(like[i])):
+                    raise ValueError(f"shape mismatch {tuple(arr.shape)} vs "
+                                     f"{np.shape(like[i])}")
+                return _typed(arr, like[i])
+            with ThreadPoolExecutor(_IO_THREADS) as pool:
+                out = list(pool.map(load, range(len(like))))
+            return _unflatten(template, iter(out)), manifest["step"]
+        except (IOError, ValueError):
+            continue
+    return None
+
+
 def restore_latest_untyped(ckpt_dir, *, verify: bool = True
-                           ) -> Optional[Tuple[List[np.ndarray], int]]:
+                           ) -> Optional[Tuple[List[Any], int]]:
     """Restore the newest complete checkpoint without a tree template.
 
     Returns ``(leaves, step)`` with the leaves as host arrays in manifest
-    order — for callers whose state is an opaque blob whose shape cannot be
-    known before reading it (the serving tier checkpoints its wire-encoded
+    order (a ``bfloat16`` leaf as a CPU ``torch.bfloat16`` tensor) — for
+    callers whose state is an opaque blob whose shape cannot be known
+    before reading it (the serving tier checkpoints its wire-encoded
     scheduler state as one variable-length uint8 leaf).  A checkpoint whose
     hashes, shapes or manifest do not check out is skipped in favour of an
     older complete one; None when none is left."""
@@ -137,22 +258,58 @@ def restore_latest_untyped(ckpt_dir, *, verify: bool = True
         path = ckpt_dir / f"step_{s:08d}"
         try:
             manifest = json.loads((path / "manifest.json").read_text())
-            leaves = []
-            for rec in manifest["leaves"]:
-                if rec["dtype"] not in _NATIVE_DTYPES:
-                    raise TypeError(f"checkpoint leaf {path / rec['file']} has "
-                                    f"dtype {rec['dtype']}, not a native numpy one")
-                f = path / rec["file"]
-                if verify:
-                    digest = hashlib.sha256(f.read_bytes()).hexdigest()
-                    if digest != rec["sha256"]:
-                        raise IOError(f"hash mismatch in {f}")
-                arr = np.load(f)
-                if list(arr.shape) != list(rec["shape"]):
-                    raise ValueError(
-                        f"shape mismatch {arr.shape} vs {rec['shape']}")
-                leaves.append(arr)
+            with ThreadPoolExecutor(_IO_THREADS) as pool:
+                leaves = list(pool.map(lambda rec: _load_leaf(path, rec, verify),
+                                       manifest["leaves"]))
             return leaves, manifest["step"]
         except (IOError, ValueError, KeyError, json.JSONDecodeError):
             continue
     return None
+
+
+def _to_host(tree: Any) -> Any:
+    """``tree`` with every leaf copied to the host (a copy even of a CPU
+    tensor, which the train step goes on updating in place)."""
+    leaves: List[Any] = []
+    _flatten(tree, leaves)
+    host = [leaf.detach().to("cpu", copy=True) if isinstance(leaf, torch.Tensor)
+            else np.array(leaf) for leaf in leaves]
+    return _unflatten(tree, iter(host))
+
+
+class CheckpointManager:
+    """Asynchronous checkpoints: one copy of the state to the host, then the
+    write on a worker thread, so the train loop never waits on the disk.
+
+    ``save_async`` waits for the previous write before it copies (the
+    reference copies first, ``checkpoint.py:205-209``): the state copied is
+    the same, since the loop is blocked in the call, and only one host copy
+    is alive at a time."""
+
+    def __init__(self, ckpt_dir, keep: int = 3):
+        self.dir = Path(ckpt_dir)
+        self.keep = keep
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def save_async(self, step: int, state: Any) -> None:
+        self.wait()
+        host_state = _to_host(state)
+        self._thread = threading.Thread(target=self._write, args=(step, host_state),
+                                        daemon=True)
+        self._thread.start()
+
+    def _write(self, step: int, host_state: Any) -> None:
+        try:
+            save_checkpoint(self.dir, step, host_state, keep=self.keep)
+        except Exception as exc:          # re-raised by wait() in the caller's thread
+            self._error = exc
+
+    def wait(self) -> None:
+        """Wait for the write in flight; raise its error, if it failed."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err

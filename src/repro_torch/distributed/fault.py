@@ -1,7 +1,6 @@
-"""Shard placement and heartbeats for the serving tier's fault handling.
-
-A copy of ``assign_shards`` and ``Heartbeat`` from the JAX package's
-``distributed/fault.py`` (pure Python and numpy):
+"""Fault tolerance and straggler mitigation, after the JAX package's
+``distributed/fault.py`` (``assign_shards`` and ``Heartbeat`` are copies,
+pure Python and numpy):
 
 * ``assign_shards``: deterministic shard -> host assignment that
   rebalances when hosts die or straggle (surviving hosts keep their
@@ -9,18 +8,20 @@ A copy of ``assign_shards`` and ``Heartbeat`` from the JAX package's
   computes the same assignment from the same alive set — no coordinator.
 * ``Heartbeat``: per-host progress timestamps; hosts slower than the
   median by ``straggler_factor`` are stragglers.
-
-The checkpointed training loop (``FaultTolerantLoop``) comes with training.
+* ``FaultTolerantLoop``: a train loop with periodic checkpoints and
+  restart-from-latest semantics; ``simulate_failure_at`` is the test hook.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
-__all__ = ["assign_shards", "Heartbeat"]
+from .checkpoint import restore_latest, save_checkpoint
+
+__all__ = ["assign_shards", "Heartbeat", "FaultTolerantLoop"]
 
 
 def assign_shards(n_shards: int, alive_hosts: Sequence[int], all_hosts: int):
@@ -73,3 +74,38 @@ class Heartbeat:
     def dead(self, timeout_s: float = 60.0) -> List[int]:
         now = time.monotonic()
         return [h for h, t in self.last_seen.items() if now - t > timeout_s]
+
+
+class FaultTolerantLoop:
+    """Checkpointed train loop with restart-from-latest semantics.
+
+    ``step_fn(state, batch) -> (state, metrics)`` must be deterministic given
+    (state, batch): a restart then reproduces the uninterrupted run.  A
+    restart restores the newest checkpoint typed by ``init_state`` and runs
+    the steps after it."""
+
+    def __init__(self, step_fn: Callable, batch_fn: Callable, ckpt_dir,
+                 ckpt_every: int = 10, keep: int = 3):
+        self.step_fn = step_fn
+        self.batch_fn = batch_fn            # step -> batch (deterministic)
+        self.ckpt_dir = ckpt_dir
+        self.ckpt_every = ckpt_every
+        self.keep = keep
+
+    def run(self, init_state, n_steps: int,
+            simulate_failure_at: Optional[int] = None):
+        restored = restore_latest(self.ckpt_dir, init_state)
+        if restored is not None:
+            state, start = restored
+            start += 1
+        else:
+            state, start = init_state, 0
+        metrics = None
+        for step in range(start, n_steps):
+            if simulate_failure_at is not None and step == simulate_failure_at:
+                raise RuntimeError(f"simulated node failure at step {step}")
+            batch = self.batch_fn(step)
+            state, metrics = self.step_fn(state, batch)
+            if (step + 1) % self.ckpt_every == 0 or step == n_steps - 1:
+                save_checkpoint(self.ckpt_dir, step, state, keep=self.keep)
+        return state, metrics

@@ -11,9 +11,10 @@ kernel on the card): the encoder's, the decoder's self-attention in
 forward and prefill, and its cross-attention in forward and prefill.  A
 decode step attends to its caches, the decoder's K/V and the encoder's
 cross K/V computed once at prefill, with the plain ``_sdpa``.  Layers are a
-Python loop; the entry points run under ``torch.inference_mode``.  Caches
-keep the reference's stacked layout and the self-attention cache is
-updated in place.
+Python loop; ``forward`` follows the caller's grad mode (the train step
+differentiates it), ``prefill`` and ``decode`` run under
+``torch.inference_mode``.  Caches keep the reference's stacked layout and
+the self-attention cache is updated in place.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ from .layers import (
     KVCache, Params, _proj_heads, attention, init_attn, init_mlp, mlp, normal, rms_norm,
     sinusoidal_pos,
 )
-from .lm import to_compute_dtype_
+from .lm import _finisher
 
 __all__ = ["EncDecCache", "init_params", "forward", "prefill", "decode"]
 
@@ -56,13 +57,15 @@ def _init_dec_layer(gen: torch.Generator, cfg: ModelConfig) -> dict:
             "ln2": _zeros(gen, cfg), "mlp": init_mlp(gen, cfg)}
 
 
-def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
+def init_params(gen: torch.Generator, cfg: ModelConfig, *,
+                for_training: bool = False) -> Params:
     """Random parameters on ``gen``'s device with the reference's
     distributions and scales (``encdec.py:33-67``); torch's draws.  The
-    matmul weights are stored in the compute dtype as each layer is drawn,
-    as in ``lm.init_params``."""
+    matmul weights are stored in the compute dtype as each layer is drawn
+    unless ``for_training`` keeps them in ``param_dtype``, as in
+    ``lm.init_params``."""
     _check(cfg)
-    finish = lambda t: to_compute_dtype_(Params(t), cfg)
+    finish = _finisher(cfg, for_training)
     D, V = cfg.d_model, cfg.vocab_size
     return finish({
         "embed": normal(gen, (V, D), cfg, D ** -0.5),
@@ -134,7 +137,6 @@ def _embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tens
     return params["embed"][tokens].to(cfg.dtype)
 
 
-@torch.inference_mode()
 def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig) -> torch.Tensor:
     """Frames and decoder tokens -> decoder logits (B, S_dec, V)."""
     _check(cfg)

@@ -15,9 +15,12 @@ CUDA kernel on the card): self-attention in forward and prefill, the
 encoder's bidirectional attention, and cross-attention in forward and
 prefill.  Attention against a cache, the decode step's self- and
 cross-attention, is plain torch (``_sdpa``), as the reference computes it
-outside any kernel (``layers.py:137-169``).  Not ported: ``_proj``'s ``pmm``
-branch (training with gradient sharding) and ``_sdpa_q_chunked``, which no
-path without a cache reaches here.
+outside any kernel (``layers.py:137-169``).  The flash-attention op's
+autograd ``_FlashAttention`` takes its gradient from ``_sdpa`` recomputed
+from the saved inputs: the reference trains through ``_sdpa`` and has no
+backward kernel.  Not ported: ``_proj``'s ``pmm`` branch (training with
+gradient sharding) and ``_sdpa_q_chunked``, which no path without a cache
+reaches here.
 """
 from __future__ import annotations
 
@@ -37,10 +40,11 @@ __all__ = [
 
 
 class Params(nn.Module):
-    """A tree of frozen parameters built from nested dicts, with the
-    reference's names: a tensor becomes an ``nn.Parameter`` (no gradient), a
-    dict a ``Params`` and a list an ``nn.ModuleList``; a ``Params`` is kept as
-    it is.  ``p["q"]`` reads as in the reference's param trees."""
+    """A tree of parameters built from nested dicts, with the reference's
+    names: a tensor becomes an ``nn.Parameter`` (no gradient until the train
+    step asks for one), a dict a ``Params`` and a list an ``nn.ModuleList``;
+    a ``Params`` is kept as it is.  ``p["q"]`` reads as in the reference's
+    param trees."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -54,6 +58,13 @@ class Params(nn.Module):
 
     def __getitem__(self, name: str):
         return getattr(self, name)
+
+    def entries(self) -> dict:
+        """Parameters and children by name: the tree's nodes one level down
+        (a layer list is an ``nn.ModuleList``)."""
+        out = dict(self.named_parameters(recurse=False))
+        out.update(self.named_children())
+        return out
 
 
 def _params(value) -> Params:
@@ -163,6 +174,32 @@ def _sdpa(q, k, v, *, causal: bool, q_offset: int = 0) -> torch.Tensor:
     return o.reshape(B, Sq, H, hd)
 
 
+class _FlashAttention(torch.autograd.Function):
+    """The flash-attention op with the reference's training gradient.
+
+    Forward runs the op (the CUDA kernel for CUDA tensors, which launches
+    or raises; its plain version on the CPU) and saves only q, k and v.
+    Backward recomputes ``_sdpa`` from them and returns its autograd
+    gradient, which materialises the (B, K, G, Sq, Skv) float32 scores of
+    one call: 134 MB at a microbatch of 2 x 512 positions and 32 heads."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return flash_attention(q, k, v, causal=causal)
+
+    @staticmethod
+    def backward(ctx, do):
+        needs = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, needs)]
+            o = _sdpa(*inputs, causal=ctx.causal)
+            wanted = [t for t, n in zip(inputs, needs) if n]
+            grads = iter(torch.autograd.grad(o, wanted, do))
+        return (*(next(grads) if n else None for n in needs), None)
+
+
 def attention(p, x: torch.Tensor, cfg: ModelConfig, *, causal: bool = True,
               cache: Optional[KVCache] = None, pos: Optional[int] = None,
               kv_x: Optional[torch.Tensor] = None, use_rope: bool = True,
@@ -217,7 +254,7 @@ def attention(p, x: torch.Tensor, cfg: ModelConfig, *, causal: bool = True,
         if causal and k.shape[1] != S:
             raise ValueError(f"attention: a causal call needs as many keys as queries, "
                              f"got {k.shape[1]} keys for {S} queries")
-        o = flash_attention(q, k, v, causal=causal)
+        o = _FlashAttention.apply(q, k, v, causal)
         if collect_kv:
             new_cache = KVCache(k, v)
     H, hd = o.shape[2], o.shape[3]

@@ -3,8 +3,9 @@ families, after the JAX package's ``models/lm.py``.  One init and three entry po
 ``forward`` (full-sequence logits), ``prefill`` and ``decode``.
 
 Layers are an ``nn.ModuleList`` walked by a Python loop (no ``lax.scan``, no
-remat).  The entry points run under ``torch.inference_mode``: the slice
-serves, and training is not ported (ROADMAP A11).  Caches keep the
+remat).  ``forward`` follows the caller's grad mode, as the reference's pure
+function does, so the train step differentiates it; ``prefill`` and
+``decode`` run under ``torch.inference_mode``.  Caches keep the
 reference's stacked layout and are updated in place:
 
   dense, moe : KVCache (L, B, S_max, K, hd)
@@ -59,15 +60,20 @@ def _hybrid_period(cfg: ModelConfig) -> int:
 # ---------------------------------------------------------------------------
 
 
-def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
+def init_params(gen: torch.Generator, cfg: ModelConfig, *,
+                for_training: bool = False) -> Params:
     """Random parameters on ``gen``'s device, with the reference's
     distributions and scales (``lm.py:42-74``); the draws are torch's, not
     JAX's (``convert.lm_params_from_numpy`` carries the reference's own).
-    The matmul weights are stored in the compute dtype as each layer is
-    drawn (``to_compute_dtype_``), so the whole tree is never held in
-    ``param_dtype``: qwen2-moe-a2.7b's float32 draws alone would be 57 GB."""
+
+    For serving, the matmul weights are stored in the compute dtype as each
+    layer is drawn (``to_compute_dtype_``), so the whole tree is never held
+    in ``param_dtype``: qwen2-moe-a2.7b's float32 draws alone would be 57 GB.
+    ``for_training`` keeps every leaf in ``param_dtype``: the master weights
+    the optimizer updates, cast to the compute dtype at each use, as the
+    reference trains them."""
     _check(cfg)
-    finish = lambda t: to_compute_dtype_(Params(t), cfg)
+    finish = _finisher(cfg, for_training)
     D, V = cfg.d_model, cfg.vocab_size
     tree: Dict[str, object] = {
         "embed": normal(gen, (V, D), cfg, D ** -0.5),
@@ -81,6 +87,15 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
     if cfg.family == "hybrid":
         tree["shared_attn"] = init_dense_layer(gen, cfg)
     return finish(tree)
+
+
+def _finisher(cfg: ModelConfig, for_training: bool):
+    """What ``init_params`` (here and in ``encdec``) makes of each drawn
+    subtree: a ``Params``, its matmul weights in the compute dtype unless it
+    is drawn for training."""
+    if for_training:
+        return Params
+    return lambda t: to_compute_dtype_(Params(t), cfg)
 
 
 def _init_moe_layer(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -176,7 +191,6 @@ def _layers(params: Params, x: torch.Tensor, cfg: ModelConfig, cache=None) -> to
     return x
 
 
-@torch.inference_mode()
 def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig) -> torch.Tensor:
     """Full-sequence forward -> logits (B, S, V) of the text positions."""
     _check(cfg)

@@ -5,9 +5,12 @@ CUDA kernel on the card, the per-timestep recurrence on the CPU), which also
 returns the final state that decode continues from.  Decode is the O(1)
 recurrence in plain torch, as in the reference.
 
-The reference's blocked XLA form (``_ssd_chunked``) and its start from a
-non-zero state (chunked prefill) are not ported: nothing in the slice
-starts a sequence from a non-zero state.
+``_ssd_chunked`` is the reference's blocked, differentiable SSD (bf16
+intra-chunk tensors, float32 state passing), with its start from a state
+``h0``.  It is the reference's training math: the scan op's autograd
+``_SSDScan`` runs the op forward and takes its gradient from
+``_ssd_chunked`` recomputed from the saved inputs.  The JAX package has no
+backward kernel for its SSD kernel, so neither has the port.
 
 State layout:
   conv state : (B, K-1, conv_dim) float32  -- last K-1 pre-conv inputs
@@ -84,6 +87,96 @@ def _causal_conv(xBC: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.T
     return F.silu(out + b[None, None, :])
 
 
+def _ssd_chunked(x, dt, A, Bm, Cm, cfg: ModelConfig, h0=None):
+    """Blocked SSD scan (the reference's ``ssm.py:80-144``).
+
+    x (B, S, H, P); dt (B, S, H); A (H,) negative; Bm/Cm (B, S, G, N); h0
+    (B, H, P, N) or None (zeros).  Returns y (B, S, H, P) in x's dtype and
+    the final state (B, H, P, N) float32.  S must be a multiple of the chunk
+    ``min(cfg.ssm_chunk, S)``, as the reference's reshape requires."""
+    B_, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    Q = min(cfg.ssm_chunk, S)
+    if S % Q:
+        raise ValueError(f"_ssd_chunked: S={S} is not a multiple of the chunk {Q}")
+    nc = S // Q
+    rep = H // G
+
+    xq = x.reshape(B_, nc, Q, H, P)
+    dtq = dt.reshape(B_, nc, Q, H)
+    Bq = Bm.reshape(B_, nc, Q, G, N)
+    Cq = Cm.reshape(B_, nc, Q, G, N)
+
+    la = torch.cumsum(dtq * A[None, None, None, :], dim=2)        # (B,nc,Q,H) log-decay
+    u = xq * dtq[..., None]                                      # discretized input
+
+    # intra-chunk: the Q x Q tensors stay in the compute dtype, the log-decay
+    # math in float32
+    # head h reads group h // rep, as jnp.repeat(., rep, axis=3); an expand,
+    # since repeat_interleave with an int count reads its size back from
+    # the device
+    heads = lambda t: t[..., None, :].expand(B_, nc, Q, G, rep, N).reshape(B_, nc, Q, H, N)
+    Bh, Ch = heads(Bq), heads(Cq)                                # (B,nc,Q,H,N)
+    cb = torch.einsum("bnqhs,bnkhs->bnhqk", Ch, Bh)              # (B,nc,H,Q,Q)
+    # the reference exponentiates every (q, k) pair and zeroes the upper
+    # triangle after: there la_q - la_k > 0 overflows exp past 88.7 (it does
+    # at zamba2-2.7b's full width, ROADMAP C4), and the zeroed entries'
+    # gradient is then 0 * inf = NaN.  Masking the exponent to -inf first gives the same
+    # values and a finite gradient.
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    expo = la[..., :, None, :] - la[..., None, :, :]             # (B,nc,Q,Q,H)
+    decay = torch.exp(torch.where(mask[:, :, None], expo, -torch.inf)).to(x.dtype)
+    att = cb * decay.permute(0, 1, 4, 2, 3)                      # (B,nc,H,Q,Q)
+    y_intra = torch.einsum("bnhqk,bnkhp->bnqhp", att.to(x.dtype), u.to(x.dtype))
+
+    # chunk summary states and the inter-chunk recurrence
+    seg = torch.exp(la[:, :, -1:, :] - la)                       # decay to chunk end
+    chunk_state = torch.einsum("bnqhs,bnqhp->bnhps", (Bh * seg[..., None]).float(),
+                               u.float())                        # (B,nc,H,P,N)
+    chunk_decay = torch.exp(la[:, :, -1, :])                     # (B,nc,H)
+    h = (torch.zeros((B_, H, P, N), dtype=torch.float32, device=x.device) if h0 is None
+         else h0.float())
+    h_enter = []
+    for c in range(nc):
+        h_enter.append(h)                                        # state entering chunk c
+        h = h * chunk_decay[:, c, :, None, None] + chunk_state[:, c]
+    h_enter = torch.stack(h_enter, dim=1)                        # (B,nc,H,P,N)
+
+    indecay = torch.exp(la)                                      # decay from chunk start
+    y_inter = torch.einsum("bnqhs,bnhps->bnqhp", (Ch * indecay[..., None]).float(),
+                           h_enter).to(x.dtype)
+    y = y_intra.float() + y_inter.float()
+    return y.reshape(B_, S, H, P).to(x.dtype), h
+
+
+class _SSDScan(torch.autograd.Function):
+    """The SSD scan op with the reference's training gradient.
+
+    Forward runs the op (the CUDA kernel for CUDA tensors, which launches
+    or raises; its plain version on the CPU) and saves only the inputs.
+    Backward recomputes ``_ssd_chunked`` from them, from a zero state as the
+    op starts, and returns its autograd gradient.  The final state is not
+    differentiable."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, cfg):
+        y, h = ssd_scan(x, dt, A, Bm, Cm, block_q=min(cfg.ssm_chunk, x.shape[1]))
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        ctx.cfg = cfg
+        ctx.mark_non_differentiable(h)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, _dh):
+        needs = ctx.needs_input_grad[:5]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, needs)]
+            y, _ = _ssd_chunked(*inputs, ctx.cfg)
+            wanted = [t for t, n in zip(inputs, needs) if n]
+            grads = iter(torch.autograd.grad(y, wanted, dy))
+        return (*(next(grads) if n else None for n in needs), None)
+
+
 def ssm_block(p, x: torch.Tensor, cfg: ModelConfig):
     """Mamba-2 block from a zero state (pre-norm, residual outside).
     x (B, S, D) -> (out (B, S, D), the state after the sequence)."""
@@ -102,7 +195,7 @@ def ssm_block(p, x: torch.Tensor, cfg: ModelConfig):
     dt = F.softplus(dt.float() + p["dt_bias"].float())
     A = -torch.exp(p["A_log"].float())
 
-    y, h_final = ssd_scan(xs, dt, A, Bm, Cm, block_q=min(cfg.ssm_chunk, S))
+    y, h_final = _SSDScan.apply(xs, dt, A, Bm, Cm, cfg)
     y = y + xs * p["D_skip"].to(y.dtype)[None, None, :, None]
     y = y.reshape(B_, S, d_inner)
     y = rms_norm(y * F.silu(z), p["gated_norm"], cfg.norm_eps)

@@ -2,11 +2,15 @@
 to the JAX package's on the CPU.
 
 Tolerances: none.  A checkpoint either package writes restores byte-equal in
-the other, and the manifests are equal; shard placements and straggler sets
-are equal on a seeded grid.
+the other, and the manifests are equal, bfloat16 leaves included (stored as
+the reference stores them, uint8 views with the logical dtype in the
+manifest); a template-typed restore returns the template's structure,
+devices and dtypes; shard placements and straggler sets are equal on a
+seeded grid.
 """
 import json
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -91,8 +95,106 @@ def test_retention(tmp_path):
 
 
 def test_dtype_numpy_lacks_is_refused(tmp_path):
-    with pytest.raises(TypeError, match="bfloat16"):
-        tckpt.save_checkpoint(tmp_path, 0, {"w": torch.ones(2, dtype=torch.bfloat16)})
+    """A dtype numpy lacks (bfloat16) is no longer refused: each package
+    restores the other's bfloat16 leaves bit for bit, from the same files
+    (the reference's uint8-view format).  A dtype the port does not read
+    still raises."""
+    rng = np.random.default_rng(3)
+    w = rng.normal(size=(3, 5)).astype(np.float32)
+    bits = torch.from_numpy(w).to(torch.bfloat16)
+    tree = {"w": bits, "s": torch.tensor([1.5, -2.0], dtype=torch.bfloat16), "n": np.arange(4)}
+    tckpt.save_checkpoint(tmp_path / "t", 2, tree)
+    leaves, step = jckpt.restore_latest_untyped(tmp_path / "t")
+    assert step == 2 and [str(a.dtype) for a in leaves] == ["int64", "bfloat16", "bfloat16"]
+    assert leaves[1].astype(np.float32).tolist() == [1.5, -2.0]
+    np.testing.assert_array_equal(leaves[2].view(np.uint16),
+                                  bits.view(torch.int16).numpy().view(np.uint16))
+    jckpt.save_checkpoint(tmp_path / "j", 2, {"w": jnp.asarray(w, jnp.bfloat16),
+                                              "s": jnp.asarray([1.5, -2.0], jnp.bfloat16),
+                                              "n": np.arange(4)})
+    for name in ("manifest.json", "leaf_0.npy", "leaf_1.npy", "leaf_2.npy", "COMMIT"):
+        assert ((tmp_path / "j" / "step_00000002" / name).read_bytes()
+                == (tmp_path / "t" / "step_00000002" / name).read_bytes()), name
+    got, _ = tckpt.restore_latest_untyped(tmp_path / "j")
+    assert got[2].dtype == torch.bfloat16 and got[2].shape == (3, 5)
+    assert torch.equal(got[2].view(torch.int16), bits.view(torch.int16))
+    assert got[1].dtype == torch.bfloat16 and got[1].tolist() == [1.5, -2.0]
+    # a 0-d bfloat16 leaf (the reference cannot write one) is written flat;
+    # the reference reads it back as 0-d
+    tckpt.save_checkpoint(tmp_path / "z", 0, {"s": torch.tensor(1.5, dtype=torch.bfloat16)})
+    (z,), _ = jckpt.restore_latest_untyped(tmp_path / "z")
+    assert z.shape == () and float(z) == 1.5
+    manifest = tmp_path / "t" / "step_00000002" / "manifest.json"
+    m = json.loads(manifest.read_text())
+    m["leaves"][2]["dtype"] = "float8_e4m3fn"
+    manifest.write_text(json.dumps(m))
+    with pytest.raises(TypeError, match="float8_e4m3fn"):
+        tckpt.restore_latest_untyped(tmp_path / "t")
+
+
+def test_restore_latest_is_typed_by_its_template(tmp_path):
+    """A TrainState over Params (bfloat16 and float32 leaves, a step) comes
+    back in the template's structure, dtypes and devices; a template whose
+    shapes differ skips the checkpoint, and a corrupt newest one falls back
+    to the older."""
+    from repro_torch.models.layers import Params
+    from repro_torch.train.train_step import TrainState
+
+    def state(seed):
+        g = torch.Generator().manual_seed(seed)
+        params = Params({"embed": torch.randn(6, 4, generator=g).to(torch.bfloat16),
+                         "layers": [{"w": torch.randn(4, 4, generator=g)} for _ in range(2)]})
+        opt = {"m": [torch.randn(2, 4, 4, generator=g)]}
+        return TrainState(torch.tensor(seed, dtype=torch.int32), params, opt)
+
+    tckpt.save_checkpoint(tmp_path, 3, state(3))
+    tckpt.save_checkpoint(tmp_path, 4, state(4))
+    template = state(0)
+    template.params.embed.data = template.params.embed.data.float()
+    restored, step = tckpt.restore_latest(tmp_path, template)
+    want = state(4)
+    assert step == 4 and isinstance(restored, TrainState) and int(restored.step) == 4
+    assert restored.params["embed"].dtype == torch.float32
+    assert torch.equal(restored.params["embed"], want.params["embed"].float())
+    assert torch.equal(restored.params["layers"][1]["w"], want.params["layers"][1]["w"])
+    assert torch.equal(restored.opt_state["m"][0], want.opt_state["m"][0])
+    # the reference restores the same files untyped
+    jleaves, _ = jckpt.restore_latest_untyped(tmp_path)
+    assert str(jleaves[1].dtype) == "bfloat16" and len(jleaves) == 5
+    leaf = tmp_path / "step_00000004" / "leaf_2.npy"
+    leaf.write_bytes(b"garbage" + leaf.read_bytes()[7:])
+    _, step = tckpt.restore_latest(tmp_path, template)
+    assert step == 3
+    wrong = state(0)
+    wrong.opt_state["m"][0] = torch.zeros(3, 4, 4)
+    assert tckpt.restore_latest(tmp_path, wrong) is None
+    assert tckpt.restore_latest(tmp_path / "missing", template) is None
+
+
+def test_checkpoint_manager_writes_asynchronously(tmp_path):
+    """save_async copies to the host and writes on a thread; the step's
+    values are the ones at the call, whatever the caller changes after;
+    keep prunes; a failed write raises at wait()."""
+    mgr = tckpt.CheckpointManager(tmp_path / "c", keep=2)
+    x = torch.arange(6, dtype=torch.float32)
+    for step in range(3):
+        mgr.save_async(step, {"x": x, "b": x.to(torch.bfloat16)})
+        x.add_(10)                       # the state moves on while the write runs
+    mgr.wait()
+    assert tckpt.latest_step(tmp_path / "c") == 2
+    kept = sorted(p.name for p in (tmp_path / "c").glob("step_????????"))
+    assert kept == ["step_00000001", "step_00000002"]
+    template = {"b": torch.zeros(6, dtype=torch.bfloat16), "x": torch.zeros(6)}
+    restored, step = tckpt.restore_latest(tmp_path / "c", template)
+    assert step == 2
+    assert torch.equal(restored["x"], torch.arange(6, dtype=torch.float32) + 20)
+    assert torch.equal(restored["b"], (torch.arange(6) + 20).to(torch.bfloat16))
+    (tmp_path / "file").write_text("not a directory")
+    bad = tckpt.CheckpointManager(tmp_path / "file")
+    bad.save_async(0, {"x": x})
+    with pytest.raises(OSError):
+        bad.wait()
+    bad.wait()                           # the error is raised once
 
 
 # ---------------------------------------------------------------------------

@@ -34,7 +34,8 @@ def test_port_imports_neither_jax_nor_reference():
         "          'meta.store', 'meta.portfolio', 'service.fingerprint', 'service.cache',\n"
         "          'service.scheduler', 'service.server', 'service.wire', 'service.worker',\n"
         "          'service.transport', 'distributed.checkpoint', 'distributed.fault',\n"
-        "          'launch.serve_tabular'):\n"
+        "          'launch.serve_tabular', 'train.optimizer', 'train.train_step',\n"
+        "          'data.pipeline', 'launch.train'):\n"
         "    assert 'repro_torch.' + m in names, m\n"
         "assert not bad, bad\n"
         "print(len(names))\n"
@@ -71,6 +72,11 @@ def test_entry_points_raise_without_a_card(no_cuda):
         DistributedScheduler, ProcessWorkerPool, Scheduler, SimWorkerPool, SubStratServer,
     )
     from repro_torch.launch import serve_tabular
+    from repro_torch.launch import train
+    from repro_torch.data.pipeline import SyntheticCorpus, corpus_to_coded, select_corpus_subset
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.train.train_step import init_train_state
+    corpus = SyntheticCorpus(16, 9, 64)
     X, y = _small_data()
     coded = factorize(X, y, device="cpu")
     calls = [
@@ -92,6 +98,11 @@ def test_entry_points_raise_without_a_card(no_cuda):
         lambda: ProcessWorkerPool(1),
         lambda: DistributedScheduler(SimWorkerPool(1)),
         lambda: serve_tabular.main(["--jobs", "1", "--scale", "0.01"]),
+        lambda: train.main(["--arch", "mamba2-130m", "--steps", "1"]),
+        lambda: select_corpus_subset(corpus, 4),
+        lambda: corpus_to_coded(corpus),
+        lambda: init_train_state(None, configs.get_arch("mamba2-130m").smoke,
+                                 adamw(lambda s: 1e-3)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
