@@ -178,15 +178,38 @@ Phases, in order; any failure exits non-zero and prints no result:
    grad norm; peak memory.  Then the same with 6 steps must resume at step
    4 from the checkpoint: its first loss is the checkpointed state's on the
    loader's step-4 batch (the loader's state restored).  (c) Warm steps: ms/step, tokens/s and MFU
-   (``launch/flops`` over 989 TFLOP/s, a reading); one step under the
-   profiler (busy share, top kernels, B3's and B4's shares and those of
-   ``_sdpa``'s and ``_ssd_chunked``'s recomputation in the backward); the
-   host waits inside one step (sync-debug "warn").
+   (``launch/flops`` over 989 TFLOP/s, a reading) and peak memory, with
+   remat (the config's default, as the reference's launcher trains) and
+   then without it; one step under the profiler (busy share, top kernels,
+   B3's and B4's shares and those of ``_sdpa``'s and ``_ssd_chunked``'s
+   recomputation in the backward); the host waits inside one step
+   (sync-debug "warn").  Phases (a)-(c) run with remat: B3 and B4 run in
+   each forward and again in its recomputation (2 x 2 x 3 x their count per
+   forward in (a); 36 and 216 per step in (b)).  (d) The reference's
+   ``train_4k`` length: zamba2-2.7b's published config, uncut, on 2 x 4096
+   positions a step in 2 microbatches of 1 x 4096 (the reference's global
+   batch of 256 and grad_accum 8 cut for one card's time), remat, AdamW,
+   no checkpoint: one untimed and 3 timed steps (ms/step, tokens/s, MFU,
+   peak memory), B3 36 and B4 216 launches per step, finite loss and grad
+   norm, one profiled step; and whether B3 and B4 give bit-equal outputs
+   on a second call with the same inputs at that shape (what a recomputed
+   forward saves for the backward).
+
+16. The mesh layer (``launch/mesh.py``, ``distributed/sharding.py``,
+   ``distributed/compression.py``, ``models/pmm.py``, ``restore_resharded``)
+   on one card: a world-size-1 NCCL process group and a (1, 1) (data,
+   model) CUDA mesh; zamba2-2.7b's param, AdamW and Adafactor state and
+   cache specs in every mode, all None; ``compressed_psum`` equal to the
+   int8 round trip; ``pmm`` with DTensor operands at zamba2's MLP up and q
+   projections in bf16 and float32 against ``torch.einsum`` autograd
+   (within 1e-2 and 1e-5 of the largest magnitude), dW in its spec's
+   placements; a small training checkpoint restored onto the mesh, every
+   global value the saved one.
 
 Then it prints the ``{"kernels": [...]}`` line (B3's entry also carries its
 times at the other prefill shapes and its launches per prefill of each
-served model; every entry its launches in the training run and per
-training step), the ``nvidia-smi`` line and, last, ``{"ok": true,
+served model; every entry its launches in the training run, per training
+step and per ``train_4k`` step), each phase's seconds, the ``nvidia-smi`` line and, last, ``{"ok": true,
 "device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -234,6 +257,13 @@ try:
 except RuntimeError:
     print("unusable")
 """
+
+
+def phase_seconds(n: int, t0: float) -> float:
+    """Print phase ``n``'s seconds since ``t0``; returns the time now."""
+    now = time.perf_counter()
+    print(f"phase {n}: {now - t0:.1f} s")
+    return now
 
 
 def fail(msg: str) -> None:
@@ -1965,6 +1995,8 @@ TRAIN_ARGV = ["--arch", "zamba2-2.7b", "--preset", "full", "--batch", str(TRAIN_
 # another sign on the other device (C3)
 TRAIN_CARD_CPU_RTOL = 1e-4
 TRAIN_SMALL_LR, TRAIN_SMALL_STEPS = 1e-3, 3
+# warm steps timed at 4 x 512, with remat and then without
+TRAIN_WARM_STEPS = 5
 # the resumed run's first logged loss (4 decimals) against the checkpointed
 # state's loss on the same batch, recomputed in the same call
 TRAIN_RESUME_TOL = 1e-3
@@ -2090,9 +2122,10 @@ def phase15_training(torch, dev, K) -> dict:
         n_attn = (cfg.n_layers // cfg.shared_attn_every if cfg.family == "hybrid"
                   else cfg.n_layers)
         n_ssd = cfg.n_layers if cfg.family == "hybrid" else 0
-        per = 2 * TRAIN_SMALL_STEPS
-        print(f"training smoke ({cfg.name}, float32, {TRAIN_SMALL_STEPS} steps of 2 "
-              f"microbatches): loss rel diff {loss_err:.3e}, grad norm rel diff {gn_err:.3e}, "
+        # 2 microbatches a step; under remat each forward runs again in the backward
+        per = 2 * TRAIN_SMALL_STEPS * (2 if cfg.remat else 1)
+        print(f"training smoke ({cfg.name}, float32, remat {cfg.remat}, {TRAIN_SMALL_STEPS} "
+              f"steps of 2 microbatches): loss rel diff {loss_err:.3e}, grad norm rel diff {gn_err:.3e}, "
               f"params max abs diff {p_err:.3e}; launches {launches}")
         if not (loss_err <= TRAIN_CARD_CPU_RTOL and gn_err <= TRAIN_CARD_CPU_RTOL
                 and p_err <= p_tol):
@@ -2121,8 +2154,9 @@ def phase15_training(torch, dev, K) -> dict:
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         print(f"  clocks after training: {smi_state()}")
         steps = _step_lines(text)
-        print(f"main path launch.train.main({' '.join(argv)}): {wall:.3f} s; launches "
-              f"{launches}; peak memory {peak:.2f} GiB; plain versions called {plain.calls}")
+        print(f"main path launch.train.main({' '.join(argv)}), remat {full.remat}: {wall:.3f} "
+              f"s; launches {launches}; peak memory {peak:.2f} GiB; plain versions called "
+              f"{plain.calls}")
         if plain.calls:
             fail(f"training on the card called kernels' plain versions: {plain.calls}")
         if [s for s, _, _ in steps] != list(range(TRAIN_STEPS)):
@@ -2131,11 +2165,13 @@ def phase15_training(torch, dev, K) -> dict:
             fail(f"training: loss or grad norm not finite: {steps}")
         if int(state.step) != TRAIN_STEPS:
             fail(f"training: final state at step {int(state.step)}, expected {TRAIN_STEPS}")
-        want = {"flash_attention": TRAIN_ACCUM * n_attn * TRAIN_STEPS,
-                "ssd_scan": TRAIN_ACCUM * full.n_layers * TRAIN_STEPS}
+        # each microbatch's forward, and again its recomputed forward under remat
+        fwd = TRAIN_ACCUM * (2 if full.remat else 1)
+        want = {"flash_attention": fwd * n_attn * TRAIN_STEPS,
+                "ssd_scan": fwd * full.n_layers * TRAIN_STEPS}
         if {k: launches[k] for k in want} != want:
             fail(f"training: launches {launches}, expected {want} "
-                 f"({TRAIN_ACCUM * n_attn} and {TRAIN_ACCUM * full.n_layers} per step)")
+                 f"({fwd * n_attn} and {fwd * full.n_layers} per step)")
         if launches["masked_histogram"] <= 0 or launches["fused_delta_fitness"] <= 0:
             fail(f"training: the subset selection launched no Gen-DST kernel: {launches}")
         for s, loss, gn in steps:
@@ -2185,12 +2221,17 @@ def phase15_training(torch, dev, K) -> dict:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     print(f"  ({time.perf_counter() - t_phase:.1f} s into phase 15)")
 
-    # (c) warm steps on the resumed state: timed, profiled, host waits
-    _train_warm(torch, dev, state, peak)
+    # (c) warm steps on the resumed state: timed with and without remat,
+    # profiled, host waits
+    state = _train_warm(torch, dev, state, peak)
+    print(f"  ({time.perf_counter() - t_phase:.1f} s into phase 15)")
+
+    # (d) the reference's train_4k length, on the same state
+    per_step_4k = _train_4k(torch, dev, K, state)
     del state
     _free(torch)
     print(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
-    return {"launches": launches, "per_step": per_step}
+    return {"launches": launches, "per_step": per_step, "per_step_4k": per_step_4k}
 
 
 TRAIN_RECOMPUTE = ("_sdpa recompute", "_ssd_chunked recompute")
@@ -2198,8 +2239,9 @@ B4_KERNELS = ("ssd_chunk_state_kernel", "ssd_state_pass_kernel", "ssd_chunk_scan
 
 
 def _train_warm(torch, dev, state, peak: float) -> None:
-    """Warm full-width zamba2-2.7b steps on ``state``: three timed (ms/step,
-    tokens/s, MFU), one with the largest log-decay span its SSD backward
+    """Warm full-width zamba2-2.7b steps on ``state``: ``TRAIN_WARM_STEPS``
+    timed (ms/step, tokens/s, MFU, peak memory), then as many without remat
+    after one untimed, one with the largest log-decay span its SSD backward
     meets (ROADMAP C4), one under the profiler (busy share, top kernels, B3's and
     B4's shares of the device time and those of the backward's
     recomputations through ``_sdpa`` and ``_ssd_chunked``, each labelled by a
@@ -2207,12 +2249,14 @@ def _train_warm(torch, dev, state, peak: float) -> None:
     under sync-debug "warn" (the host waits inside a step)."""
     import bisect
     import collections
+    import dataclasses
     import warnings
     from torch.profiler import ProfilerActivity, profile, record_function
     from repro_torch.configs import get_arch
     from repro_torch.device import make_generator
     from repro_torch.launch.flops import model_flops
     from repro_torch.models.config import ShapeSpec
+    from repro_torch.models import ssm
     from repro_torch.models.layers import _FlashAttention
     from repro_torch.models.ssm import _SSDScan
     from repro_torch.train.optimizer import make_optimizer, warmup_cosine
@@ -2225,41 +2269,47 @@ def _train_warm(torch, dev, state, peak: float) -> None:
     toks = torch.randint(0, full.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
                          generator=make_generator(5, dev), device=dev)
     batch = {"tokens": toks[:, :-1].contiguous(), "labels": toks[:, 1:].contiguous()}
-    times = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, m = step_fn(state, batch)
-        float(m["loss"])
-        times.append(time.perf_counter() - t0)
-    ms = sorted(times)[1] * 1e3
     flops = model_flops(full, ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train"))
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    print(f"training zamba2-2.7b (full width, {full.n_layers} layers, bf16 compute, float32 "
-          f"params, AdamW, batch {TRAIN_BATCH} x {TRAIN_SEQ} in {TRAIN_ACCUM} microbatches), "
-          f"warm: {ms:.3f} ms/step (median of {', '.join(f'{t * 1e3:.3f}' for t in times)}), "
-          f"{tokens * 1e3 / ms:.1f} tokens/s, {flops / 1e12:.3f} TFLOP per step "
-          f"(launch/flops), MFU {flops / (ms * 1e-3) / BF16_OPS_PER_S:.4f} of "
-          f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s (a reading, no claim); peak memory "
-          f"{peak:.2f} GiB  [{smi_line()}]")
+    # remat (the config's default), then without it, in the same call
+    for remat in (True, False):
+        fn = step_fn if remat else make_train_step(dataclasses.replace(full, remat=False), opt,
+                                                   accum_steps=TRAIN_ACCUM)
+        if not remat:
+            state, _ = fn(state, batch)         # its first step, untimed
+        _free(torch)
+        torch.cuda.reset_peak_memory_stats()
+        state, _, ms, times = _timed_steps(torch, fn, state, batch, TRAIN_WARM_STEPS)
+        window_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"training zamba2-2.7b (full width, {full.n_layers} layers, bf16 compute, "
+              f"float32 params, AdamW, batch {TRAIN_BATCH} x {TRAIN_SEQ} in {TRAIN_ACCUM} "
+              f"microbatches, remat {remat}), warm: {ms:.3f} ms/step (median of "
+              f"{', '.join(f'{t * 1e3:.3f}' for t in times)}), {tokens * 1e3 / ms:.1f} "
+              f"tokens/s, {flops / 1e12:.3f} TFLOP per step (launch/flops), MFU "
+              f"{flops / (ms * 1e-3) / BF16_OPS_PER_S:.4f} of {BF16_OPS_PER_S / 1e12:.0f} "
+              f"TFLOP/s (a reading, no claim); peak memory of these steps {window_peak:.2f} "
+              f"GiB" + (f", of the launcher's run {peak:.2f} GiB" if remat else "")
+              + f"  [{smi_line()}]")
 
     originals = (_FlashAttention.backward, _SSDScan.backward)
 
     # the largest log-decay span inside a chunk that the backward meets:
-    # past 88.7 the reference's _ssd_chunked overflows exp (ROADMAP C4)
+    # past 88.7 the reference's _ssd_chunked overflows exp (ROADMAP C4).  Read
+    # from the arguments of the backward's _ssd_chunked: under remat a saved
+    # tensor may be unpacked only once, by the backward itself.
     spans_seen = []
+    chunked = ssm._ssd_chunked
 
-    def span_recorded(ctx, *grads):
-        x, dt, a = ctx.saved_tensors[:3]
+    def span_recorded(x, dt, a, *args, **kw):
         Q = min(full.ssm_chunk, x.shape[1])
         la = torch.cumsum((dt * a).reshape(dt.shape[0], -1, Q, dt.shape[2]), dim=2)
-        spans_seen.append((la[:, :, 0] - la[:, :, -1]).max())
-        return originals[1](ctx, *grads)
-    _SSDScan.backward = staticmethod(span_recorded)
+        spans_seen.append((la[:, :, 0] - la[:, :, -1]).max().detach())
+        return chunked(x, dt, a, *args, **kw)
+    ssm._ssd_chunked = span_recorded
     try:
         state, m = step_fn(state, batch)
     finally:
-        _SSDScan.backward = staticmethod(originals[1])
+        ssm._ssd_chunked = chunked
     span = torch.stack(spans_seen).max().item()
     print(f"  largest log-decay span in a chunk over one step's {len(spans_seen)} SSD "
           f"backward calls: {span:.2f} (exp overflows float32 past 88.7); grad norm "
@@ -2338,6 +2388,260 @@ def _train_warm(torch, dev, state, peak: float) -> None:
     where = collections.Counter(f"{Path(w.filename).name}:{w.lineno}" for w in waits)
     print(f"  host waits inside one training step: {len(waits)}"
           + (": " + ", ".join(f"{k} x{v}" for k, v in where.most_common()) if waits else ""))
+    return state
+
+
+# phase 15 (d): zamba2-2.7b's published config, uncut, at the reference's
+# train_4k length (src/repro/models/config.py:102: 4096 positions); the global
+# batch cut from 256 (grad_accum 8) to 2 sequences in 2 microbatches of 1 x
+# 4096, for one card's time.  One untimed step, TRAIN_4K_STEPS timed, one
+# profiled; no checkpoint (the state is 29 GB).
+TRAIN_4K_SEQ, TRAIN_4K_BATCH, TRAIN_4K_ACCUM, TRAIN_4K_STEPS = 4096, 2, 2, 3
+
+
+def _train_4k(torch, dev, K, state) -> dict:
+    """Phase 15 (d): ``state`` trained on 2 x 4096 positions a step with remat
+    (B3 and B4 in each forward and its recomputation).  Prints warm ms/step,
+    tokens/s, MFU, peak memory, launches per step and one profiled step;
+    checks loss and grad norm finite.  Then B3 and B4 called twice on the
+    same inputs at this shape: whether a recomputed forward reproduces them
+    bit for bit.  Returns each kernel's launches per step."""
+    from repro_torch.configs import get_arch
+    from repro_torch.device import make_generator
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.launch.flops import model_flops
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.train.optimizer import make_optimizer, warmup_cosine
+    from repro_torch.train.train_step import make_train_step
+
+    t0 = time.perf_counter()
+    arch = get_arch("zamba2-2.7b")
+    full = arch.config
+    if not full.remat:
+        fail("train_4k: the zamba2-2.7b config does not default to remat")
+    opt = make_optimizer(arch.optimizer, warmup_cosine(arch.peak_lr, warmup=20, total=100))
+    step_fn = make_train_step(full, opt, accum_steps=TRAIN_4K_ACCUM)
+    toks = torch.randint(0, full.vocab_size, (TRAIN_4K_BATCH, TRAIN_4K_SEQ + 1),
+                         generator=make_generator(6, dev), device=dev)
+    batch = {"tokens": toks[:, :-1].contiguous(), "labels": toks[:, 1:].contiguous()}
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    state, m = step_fn(state, batch)
+    first = (float(m["loss"]), float(m["grad_norm"]))
+    state, m, ms, times = _timed_steps(torch, step_fn, state, batch, TRAIN_4K_STEPS)
+    launches = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_steps = 1 + TRAIN_4K_STEPS
+    n_attn = full.n_layers // full.shared_attn_every
+    fwd = TRAIN_4K_ACCUM * 2                  # each forward and its recomputation
+    want = {"flash_attention": fwd * n_attn, "ssd_scan": fwd * full.n_layers}
+    per_step = {k: launches[k] // n_steps for k in want}
+    flops = model_flops(full, ShapeSpec("train_4k", TRAIN_4K_SEQ, TRAIN_4K_BATCH, "train"))
+    tokens = TRAIN_4K_BATCH * TRAIN_4K_SEQ
+    last = (float(m["loss"]), float(m["grad_norm"]))
+    print(f"train_4k: zamba2-2.7b (published config, {full.n_layers} layers, bf16 compute, "
+          f"float32 params, AdamW, remat), {TRAIN_4K_BATCH} x {TRAIN_4K_SEQ} positions a step "
+          f"in {TRAIN_4K_ACCUM} microbatches of 1 x {TRAIN_4K_SEQ}; warm {ms:.3f} ms/step "
+          f"(median of {', '.join(f'{t * 1e3:.3f}' for t in times)}), "
+          f"{tokens * 1e3 / ms:.1f} tokens/s, {flops / 1e12:.3f} TFLOP per step "
+          f"(launch/flops), MFU {flops / (ms * 1e-3) / BF16_OPS_PER_S:.4f} of "
+          f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s (a reading, no claim); peak memory "
+          f"{peak:.2f} GiB  [{smi_line()}]")
+    print(f"  launches in {n_steps} steps: {launches}; per step flash_attention "
+          f"{launches['flash_attention'] / n_steps:g}, ssd_scan {launches['ssd_scan'] / n_steps:g}"
+          f" (expected {want['flash_attention']} and {want['ssd_scan']}); loss "
+          f"{first[0]:.4f} -> {last[0]:.4f}, grad norm {first[1]:.4f} -> {last[1]:.4f}")
+    if not all(math.isfinite(v) for v in first + last):
+        fail(f"train_4k: loss or grad norm not finite: {first}, {last}")
+    if any(launches[k] != n_steps * want[k] for k in want):
+        fail(f"train_4k: launches {launches} over {n_steps} steps, expected {want} per step")
+    print("  profiled train_4k step:")
+    profile_share(torch, lambda: step_fn(state, batch))
+
+    # does a recomputed forward reproduce each kernel's output bit for bit?
+    g = make_generator(7, dev)
+    H, hd = full.n_heads, full.head_dim
+    q, k, v = (torch.randn(1, TRAIN_4K_SEQ, H, hd, generator=g, device=dev,
+                           dtype=torch.bfloat16) for _ in range(3))
+    Hs, P, N = full.ssm_heads, full.ssm_head_dim, full.ssm_state
+    x = torch.randn(1, TRAIN_4K_SEQ, Hs, P, generator=g, device=dev, dtype=torch.bfloat16)
+    dt = torch.rand(1, TRAIN_4K_SEQ, Hs, generator=g, device=dev) * 0.1
+    a = -torch.rand(Hs, generator=g, device=dev)
+    bm, cm = (torch.randn(1, TRAIN_4K_SEQ, full.ssm_groups, N, generator=g, device=dev,
+                          dtype=torch.bfloat16) for _ in range(2))
+    same = {"B3 (flash_attention)": torch.equal(flash_attention(q, k, v, causal=True),
+                                                flash_attention(q, k, v, causal=True))}
+    y1, h1 = ssd_scan(x, dt, a, bm, cm, block_q=full.ssm_chunk)
+    y2, h2 = ssd_scan(x, dt, a, bm, cm, block_q=full.ssm_chunk)
+    same["B4 (ssd_scan)"] = torch.equal(y1, y2) and torch.equal(h1, h2)
+    print("  a second call on the same inputs at the train_4k shape, bit-equal (deterministic: "
+          "a recomputed forward saves the same tensors): " + ", ".join(
+              f"{k} {'yes' if v else 'no (nondeterministic: the recomputed forward shifts the gradient)'}"
+              for k, v in same.items()))
+    print(f"  (train_4k: {time.perf_counter() - t0:.1f} s)")
+    return per_step
+
+
+def _timed_steps(torch, step_fn, state, batch, n: int):
+    """``n`` steps, each timed on the host clock to its loss on the host;
+    returns the state, the last step's metrics, the median ms and each
+    step's seconds."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        float(m["loss"])
+        times.append(time.perf_counter() - t0)
+    return state, m, sorted(times)[n // 2] * 1e3, times
+
+
+# phase 16: the mesh layer on one card.  pmm at zamba2-2.7b's MLP up
+# projection (4096 tokens, 2560 -> 10240) and its q projection (2560 -> 32 x
+# 80 heads); against torch.einsum autograd, relative to the largest magnitude
+PMM_SHAPES = (("bsd,df->bsf", (1, 4096, 2560), (2560, 10240), ("data", "model")),
+              ("bsd,dhk->bshk", (1, 4096, 2560), (2560, 32, 80), ("data", "model", None)))
+PMM_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+
+
+def phase16_mesh(torch, dev) -> None:
+    """The mesh layer on one card: a world-size-1 NCCL process group and a
+    (1, 1) (data, model) CUDA mesh; zamba2-2.7b's param and optimizer-state
+    specs on it (all None: ``_sanitize`` drops size-1 axes); ``compressed_psum``
+    against the int8 round trip; ``pmm`` with DTensor operands at zamba2
+    projection shapes in bf16 and float32 against ``torch.einsum`` autograd;
+    ``restore_resharded`` of a small checkpoint onto the mesh.  The process
+    group is destroyed at the end."""
+    import dataclasses
+    import shutil
+    import socket
+    import tempfile
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from repro_torch.configs import get_arch
+    from repro_torch.device import make_generator
+    from repro_torch.distributed import checkpoint as ckpt
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed.compression import (
+        compressed_psum, dequantize_int8, quantize_int8,
+    )
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.pmm import matmul
+    from repro_torch.train.optimizer import adafactor, adamw
+    from repro_torch.train.train_step import TrainState, init_train_state
+
+    class MetaGenerator(torch.Generator):
+        """Reports the meta device: ``init_params`` then builds shapes only."""
+
+        @property
+        def device(self):
+            return torch.device("meta")
+
+    t_phase = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1)
+    tmp = tempfile.mkdtemp(prefix="repro_torch_mesh_")
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+        print(f"mesh: {mesh.device_type} {tuple(mesh.shape)} {mesh.mesh_dim_names} on a "
+              f"world-size-1 {dist.get_backend()} process group")
+
+        # (a) zamba2-2.7b's specs on the one-card mesh: all None
+        full = get_arch("zamba2-2.7b").config
+        params = lm.init_params(MetaGenerator(), full, for_training=True)
+        n_specs = 0
+        for mode in ("train", "prefill", "decode"):
+            rules = sh.rules_for(full, mesh, mode)
+            pspecs = sh.param_specs(params, full, mesh, rules)
+            trees = [pspecs]
+            for opt in (adamw(lambda s: 1e-3), adafactor(lambda s: 1e-3)):
+                trees.append(sh.opt_state_specs(opt.init(params), pspecs, params, mesh))
+            trees.append(sh.cache_specs(lm.init_cache(full, 4, 4096, device="meta"), full,
+                                        mesh, rules))
+            specs = []
+            for tree in trees:
+                sh._map_specs(tree, specs.append)
+            bad = [sp for sp in specs if any(e is not None for e in sp)]
+            if bad:
+                fail(f"mesh: {len(bad)} specs on the (1, 1) mesh name an axis ({mode}): "
+                     f"{bad[:3]}")
+            n_specs += len(specs)
+        print(f"  zamba2-2.7b specs (params, AdamW and Adafactor state, cache; train, prefill, "
+              f"decode): {n_specs}, all None")
+
+        # (b) compressed_psum over the one-rank group: the int8 round trip, twice
+        x = torch.randn(1 << 20, generator=make_generator(8, dev), device=dev)
+        got = compressed_psum(x)
+        q, sc = quantize_int8(x.reshape(1, -1))
+        q2, s2 = quantize_int8((q.float() * sc).sum(0))
+        want = dequantize_int8(q2, s2)
+        rel = float((got - x).abs().max() / x.abs().max())
+        print(f"  compressed_psum (1 rank, {x.numel()} floats): equal to the int8 round trip "
+              f"{torch.equal(got, want)}; max error {rel:.3e} of the largest magnitude")
+        if not torch.equal(got, want) or not rel < 0.05:
+            fail(f"mesh: compressed_psum differs from the int8 round trip (error {rel})")
+
+        # (c) pmm with DTensor operands on the mesh, bf16 and float32
+        for subs, xs, ws, spec in PMM_SHAPES:
+            for dtype in (torch.bfloat16, torch.float32):
+                gen = make_generator(9, dev)
+                xv = torch.randn(xs, generator=gen, device=dev).to(dtype)
+                wv = (torch.randn(ws, generator=gen, device=dev) * xs[-1] ** -0.5).to(dtype)
+                xd = distribute_tensor(xv, mesh, sh.spec_placements(("data",), mesh))
+                wd = distribute_tensor(wv, mesh, sh.spec_placements(spec, mesh))
+                xd.requires_grad_()
+                wd.requires_grad_()
+                y = matmul(xd, wd, subs, (spec, 1, 1, None))
+                gy = torch.randn(y.shape, generator=gen, device=dev).to(dtype)
+                y.backward(distribute_tensor(gy, mesh, list(y.placements)))
+                xr, wr = xv.clone().requires_grad_(), wv.clone().requires_grad_()
+                yr = torch.einsum(subs, xr, wr)
+                yr.backward(gy)
+                errs = {name: float((a.detach().full_tensor().float() - b.detach().float())
+                                    .abs().max() / b.detach().float().abs().max())
+                        for name, a, b in (("y", y, yr), ("dx", xd.grad, xr.grad),
+                                           ("dw", wd.grad, wr.grad))}
+                tol = PMM_TOL[str(dtype).split(".")[-1]]
+                placed = tuple(wd.grad.placements) == sh.spec_placements(spec, mesh)
+                print(f"  pmm {subs} {xs} x {ws} {str(dtype).split('.')[-1]}: "
+                      + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                      + f" of the largest magnitude (limit {tol}); dW placements "
+                      f"{tuple(wd.grad.placements)}")
+                if not (all(v <= tol for v in errs.values()) and placed
+                        and isinstance(wd.grad, DTensor)):
+                    fail(f"mesh: pmm {subs} {dtype} differs from einsum autograd: {errs}, "
+                         f"dW placements {wd.grad.placements}")
+                del xd, wd, y, xr, wr, yr
+
+        # (d) restore_resharded of a small training checkpoint onto the mesh
+        smoke = dataclasses.replace(get_arch("zamba2-2.7b").smoke, dtype=torch.float32)
+        state = init_train_state(make_generator(0), smoke, adamw(lambda s: 1e-3))
+        ckpt.save_checkpoint(tmp, 3, state)
+        rules = sh.rules_for(smoke, mesh, "train")
+        pspecs = sh.param_specs(state.params, smoke, mesh, rules)
+        specs = TrainState(sh.PartitionSpec(), pspecs,
+                           sh.opt_state_specs(state.opt_state, pspecs, state.params, mesh))
+        restored, step = ckpt.restore_resharded(tmp, state, sh.tree_shardings(specs, mesh))
+        saved, got = [], []
+        ckpt._flatten(state, saved)
+        ckpt._flatten(restored, got)
+        ok = (step == 3 and len(saved) == len(got)
+              and all(isinstance(g, DTensor) and g.device.type == "cuda"
+                      and torch.equal(g.full_tensor().cpu(), s) for s, g in zip(saved, got)))
+        print(f"  restore_resharded: {len(got)} leaves of zamba2's smoke training state onto "
+              f"the CUDA mesh, step {step}, every global value the saved one: {ok}")
+        if not ok:
+            fail("mesh: restore_resharded did not restore the saved values onto the mesh")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        dist.destroy_process_group()
+    print(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> None:
@@ -2364,6 +2668,7 @@ def main() -> None:
     import numpy as np
 
     # --- 1. the card and the build -------------------------------------------
+    t_sec = time.perf_counter()
     smi = smi_line()
     dev = resolve_device("cuda")
     print(f"card: {smi}")
@@ -2406,6 +2711,7 @@ def main() -> None:
         return masked_histogram_ref(f, torch.ones(ng, device=codes_.device), bins).reshape(
             Pg, codes_.shape[1], bins)
 
+    t_sec = phase_seconds(1, t_sec)
     # --- 2. masked histogram -------------------------------------------------
     ones = torch.ones(n, dtype=torch.float32, device=dev)
     h_k = masked_histogram_cuda(flat, ones, B)
@@ -2496,6 +2802,7 @@ def main() -> None:
                     "launches": None, "max_abs_err": hist_err, "ms": ms_k, "plain_ms": ms_p,
                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": ms_l})
 
+    t_sec = phase_seconds(2, t_sec)
     # --- 3. fused delta + fitness --------------------------------------------
     counts_main = h_r.reshape(P, M, B)
     f_ref = full_column_entropy(coded.codes, B).mean().reshape(1)
@@ -2605,6 +2912,7 @@ def main() -> None:
                     "launches": None, "max_abs_err": fit_err, "ms": ms_k, "plain_ms": ms_p,
                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
 
+    t_sec = phase_seconds(3, t_sec)
     # --- 4. small input: kernels on the card = plain versions on the CPU -----
     rng = np.random.default_rng(0)
     Xs = np.column_stack([rng.integers(0, k, 800) for k in (3, 5, 17, 2, 40, 7)]).astype(float)
@@ -2635,6 +2943,7 @@ def main() -> None:
     torch.cuda.synchronize()
     print("full-size Gen-DST: no host sync inside the search")
 
+    t_sec = phase_seconds(4, t_sec)
     # --- 5. the main path ------------------------------------------------------
     print(f"  clocks before the main path: {smi_state()}")
     K.reset_launch_counts()
@@ -2675,6 +2984,7 @@ def main() -> None:
     if len(result.row_idx) != n or int(mask_t.sum()) != m:
         fail(f"subset shape {len(result.row_idx)} x {int(mask_t.sum())}, expected {n} x {m}")
 
+    t_sec = phase_seconds(5, t_sec)
     # --- 6. where the main path's time goes (a second run, profiled) ---------
     print("profiled main path (Gen-DST phase alone, then the whole execute):")
     events, _ = profile_share(torch, lambda: gen_dst(make_generator(0, dev), coded, device=dev))
@@ -2690,16 +3000,21 @@ def main() -> None:
           f"({ours_us / total_us if total_us else float('nan'):.4f})")
     profile_share(torch, lambda: execute(plan("gen_dst"), X_tr, y_tr, seed=0, device="cuda"))
 
+    t_sec = phase_seconds(6, t_sec)
     # --- 7-9. the LM serving slice: B3, B4 and zamba2-2.7b at full width -----
     kernels.append(phase7_flash_attention(torch, dev))
+    t_sec = phase_seconds(7, t_sec)
     kernels.append(phase8_ssd_scan(torch, dev))
+    t_sec = phase_seconds(8, t_sec)
     launches = phase9_serving(torch, dev, K)
+    t_sec = phase_seconds(9, t_sec)
     for entry in kernels:
         if entry["launches"] is None:
             entry["launches"] = launches[entry["name"]]
 
     # --- 10. the AutoML backends on the card -----------------------------------
     phase10_automl_backends(torch, dev, X_tr, y_tr, X_te, y_te, result)
+    phase_seconds(10, t_sec)
 
     # --- 11. the other subset strategies and batched Gen-DST ---------------------
     phase11_strategies(torch, dev, K, coded, X_tr, y_tr, X_te, y_te)
@@ -2721,8 +3036,12 @@ def main() -> None:
     for entry in kernels:
         entry["launches_training_run"] = training["launches"][entry["name"]]
         entry["launches_per_train_step"] = training["per_step"].get(entry["name"], 0)
+        entry["launches_per_train_4k_step"] = training["per_step_4k"].get(entry["name"], 0)
         if entry["launches_training_run"] <= 0:
             fail(f"{entry['name']} was not launched by the training run")
+
+    # --- 16. the mesh layer on one card --------------------------------------------
+    phase16_mesh(torch, dev)
 
     print(json.dumps({"kernels": kernels}))
     print(smi_line())

@@ -31,7 +31,10 @@ is hashed as it is written and as it is read, never read back, so its
 bytes cross memory once and the hashing, which bounds the rate of a large
 state, runs on several cores.
 
-``restore_resharded`` (onto a device mesh) comes with the mesh slice.
+* ``restore_resharded(dir, template, shardings)`` restores as
+  ``restore_latest`` does, then places each leaf as a DTensor with its
+  ``sharding.NamedSharding`` (mesh and placements): the elastic restore
+  onto a new mesh.
 """
 from __future__ import annotations
 
@@ -52,7 +55,7 @@ from torch import nn
 from ..models.layers import Params
 
 __all__ = ["save_checkpoint", "restore_latest", "restore_latest_untyped", "latest_step",
-           "CheckpointManager"]
+           "restore_resharded", "CheckpointManager"]
 
 _NATIVE_DTYPES = {
     "float64", "float32", "float16", "int64", "int32", "int16", "int8",
@@ -265,6 +268,30 @@ def restore_latest_untyped(ckpt_dir, *, verify: bool = True
         except (IOError, ValueError, KeyError, json.JSONDecodeError):
             continue
     return None
+
+
+def restore_resharded(ckpt_dir, template: Any, shardings: Any
+                      ) -> Optional[Tuple[Any, int]]:
+    """Elastic restore: ``restore_latest``, then each leaf placed with its
+    sharding (a tree of ``sharding.NamedSharding`` matching ``template``,
+    as ``sharding.tree_shardings`` makes) as a DTensor on that mesh.  Each
+    leaf's global value is the saved one."""
+    from torch.distributed.tensor import distribute_tensor
+    res = restore_latest(ckpt_dir, template)
+    if res is None:
+        return None
+    tree, step = res
+    leaves: List[Any] = []
+    placements: List[Any] = []
+    _flatten(tree, leaves)
+    _flatten(shardings, placements)
+    if len(leaves) != len(placements):
+        raise ValueError(f"restore_resharded: {len(placements)} shardings for "
+                         f"{len(leaves)} leaves")
+    placed = [distribute_tensor(torch.as_tensor(leaf).to(sh.mesh.device_type), sh.mesh,
+                                list(sh.placements))
+              for leaf, sh in zip(leaves, placements)]
+    return _unflatten(tree, iter(placed)), step
 
 
 def _to_host(tree: Any) -> Any:

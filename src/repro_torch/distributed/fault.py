@@ -10,6 +10,8 @@ pure Python and numpy):
   median by ``straggler_factor`` are stragglers.
 * ``FaultTolerantLoop``: a train loop with periodic checkpoints and
   restart-from-latest semantics; ``simulate_failure_at`` is the test hook.
+  The port's train step updates its state in place, so the loop keeps a
+  host copy of the initial state for a restart that finds no checkpoint.
 """
 from __future__ import annotations
 
@@ -18,8 +20,9 @@ import time
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
-from .checkpoint import restore_latest, save_checkpoint
+from .checkpoint import _flatten, _to_host, restore_latest, save_checkpoint
 
 __all__ = ["assign_shards", "Heartbeat", "FaultTolerantLoop"]
 
@@ -82,7 +85,17 @@ class FaultTolerantLoop:
     ``step_fn(state, batch) -> (state, metrics)`` must be deterministic given
     (state, batch): a restart then reproduces the uninterrupted run.  A
     restart restores the newest checkpoint typed by ``init_state`` and runs
-    the steps after it."""
+    the steps after it.
+
+    A restart that finds no checkpoint starts from the initial values even
+    when ``step_fn`` updated ``init_state`` in place (the port's train step
+    does): the first ``run`` that finds no checkpoint keeps a host copy of
+    ``init_state`` (``checkpoint._to_host``), and a later ``run`` handed the
+    same object, again without a checkpoint, copies it back into the state
+    in place before step 0.  The copy costs host memory the size of the
+    state, 29 GB (27 GiB) for zamba2-2.7b's float32 params and AdamW state,
+    and no device memory: a second device copy would not fit beside its
+    training peak.  It is dropped once a checkpoint is written."""
 
     def __init__(self, step_fn: Callable, batch_fn: Callable, ckpt_dir,
                  ckpt_every: int = 10, keep: int = 3):
@@ -91,6 +104,25 @@ class FaultTolerantLoop:
         self.ckpt_dir = ckpt_dir
         self.ckpt_every = ckpt_every
         self.keep = keep
+        self._initial = None                # (init_state, its host copy)
+
+    def _start_from(self, init_state):
+        """``init_state`` holding its initial values: snapshot it on the first
+        start, restore the snapshot into it on a later one."""
+        if self._initial is None or self._initial[0] is not init_state:
+            self._initial = (init_state, _to_host(init_state))
+            return init_state
+        live: List = []
+        saved: List = []
+        _flatten(init_state, live)
+        _flatten(self._initial[1], saved)
+        with torch.no_grad():
+            for dst, src in zip(live, saved):
+                if isinstance(dst, torch.Tensor):
+                    dst.copy_(src)
+                elif isinstance(dst, np.ndarray):
+                    np.copyto(dst, src)
+        return init_state
 
     def run(self, init_state, n_steps: int,
             simulate_failure_at: Optional[int] = None):
@@ -99,7 +131,7 @@ class FaultTolerantLoop:
             state, start = restored
             start += 1
         else:
-            state, start = init_state, 0
+            state, start = self._start_from(init_state), 0
         metrics = None
         for step in range(start, n_steps):
             if simulate_failure_at is not None and step == simulate_failure_at:
@@ -108,4 +140,5 @@ class FaultTolerantLoop:
             state, metrics = self.step_fn(state, batch)
             if (step + 1) % self.ckpt_every == 0 or step == n_steps - 1:
                 save_checkpoint(self.ckpt_dir, step, state, keep=self.keep)
+                self._initial = None
         return state, metrics

@@ -1,12 +1,17 @@
 """Model configuration of the LM slice: the fields of the JAX package's
-``models/config.py`` that serving its six families reads.
+``models/config.py`` that serving and training its six families read.
 
-Dtypes are ``torch.dtype``s.  Left out (see ROADMAP, deliberate
-differences): the launcher and sharding fields (``act_shard_spec``,
-``moe_ep_shard``, ``grad_shard``, ``mesh_*``), ``remat`` and
-``scan_layers`` (layers are a Python loop; nothing is rematerialised), and
-``attn_impl`` / ``ssm_impl`` (the device picks the implementation: the CUDA
-kernels for CUDA tensors, their plain versions on the CPU).
+Dtypes are ``torch.dtype``s.  ``remat`` (default True, as the reference's)
+runs each layer body, or each hybrid group, under
+``torch.utils.checkpoint`` when the forward builds a graph.  ``grad_shard``
+with ``mesh_data_size``, ``mesh_model_size`` and ``act_shard_spec`` routes
+the big projections through ``models/pmm.py``; ``moe_ep_shard`` also routes
+the expert products there.  Left out (see ROADMAP, deliberate differences):
+``scan_layers`` (layers are a Python loop), ``attn_impl`` / ``ssm_impl``
+(the device picks the implementation: the CUDA kernels for CUDA tensors,
+their plain versions on the CPU), and the launcher's own use of
+``act_shard_spec`` and ``moe_ep_shard`` as sharding constraints on the
+residual stream and the MoE dispatch buffers, which come with the dry-run.
 """
 from __future__ import annotations
 
@@ -55,10 +60,22 @@ class ModelConfig:
     max_dec_len: int = 4096
     # vlm
     n_img_tokens: int = 0
-    # numerics
+    # numerics / execution
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
+    remat: bool = True
     logit_dtype: torch.dtype = torch.float32
+    # the residual activation's spec (per-dim mesh axis names), read by
+    # ``pmm`` as its ``act_spec``.  () = off.  Set by the launcher per mesh.
+    act_shard_spec: tuple = ()
+    # route the expert products through ``pmm`` too (with ``grad_shard``)
+    moe_ep_shard: bool = False
+    # route the big projections through ``pmm``, whose weight gradient lands
+    # in the weight's (FSDP x TP) layout; launcher-set, with the mesh's
+    # axis sizes for the per-dim divisibility checks
+    grad_shard: bool = False
+    mesh_data_size: int = 0
+    mesh_model_size: int = 0
 
     @property
     def d_inner(self) -> int:       # ssm inner width

@@ -14,7 +14,10 @@ cross K/V computed once at prefill, with the plain ``_sdpa``.  Layers are a
 Python loop; ``forward`` follows the caller's grad mode (the train step
 differentiates it), ``prefill`` and ``decode`` run under
 ``torch.inference_mode``.  Caches keep the reference's stacked layout and
-the self-attention cache is updated in place.
+the self-attention cache is updated in place.  With ``cfg.remat`` each
+encoder and decoder layer of a forward that builds a graph runs under
+``torch.utils.checkpoint`` (``lm.layer_runner``), as the reference wraps
+each scanned body in ``jax.checkpoint``.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ from .layers import (
     KVCache, Params, _proj_heads, attention, init_attn, init_mlp, mlp, normal, rms_norm,
     sinusoidal_pos,
 )
-from .lm import _finisher
+from .lm import _finisher, layer_runner
 
 __all__ = ["EncDecCache", "init_params", "forward", "prefill", "decode"]
 
@@ -77,16 +80,21 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *,
     })
 
 
+def _enc_layer(lp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    h, _ = attention(lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps), cfg,
+                     causal=False, use_rope=False)
+    x = x + h
+    return x + mlp(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)
+
+
 def _encode(params: Params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """frames (B, S_enc, D) stub embeddings -> encoder states, in the compute dtype."""
     B, S, D = frames.shape
+    run = layer_runner(cfg, fill=False)
     x = frames.to(cfg.dtype)
     x = x + sinusoidal_pos(S, D, x.dtype, device=x.device)[None]
     for lp in params["enc_layers"]:
-        h, _ = attention(lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps), cfg,
-                         causal=False, use_rope=False)
-        x = x + h
-        x = x + mlp(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)
+        x = run(_enc_layer, lp, x, cfg)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -98,6 +106,23 @@ def _cross_kv(params: Params, enc: torch.Tensor) -> KVCache:
                    torch.stack([_proj_heads(enc, lp["cross_attn"]["v"]) for lp in layers]))
 
 
+def _dec_layer(lp, x: torch.Tensor, cfg: ModelConfig, enc: Optional[torch.Tensor],
+               cross: Optional[KVCache], cache: Optional[KVCache], pos: Optional[int],
+               fill: bool):
+    """One decoder layer.  Returns (x, the prompt's K/V when ``fill``)."""
+    h, kv = attention(lp["self_attn"], rms_norm(x, lp["ln1"], cfg.norm_eps), cfg,
+                      causal=True, cache=cache, pos=pos, collect_kv=fill)
+    x = x + h
+    xin = rms_norm(x, lp["ln_x"], cfg.norm_eps)
+    if cross is None:
+        h, _ = attention(lp["cross_attn"], xin, cfg, causal=False, kv_x=enc, use_rope=False)
+    else:
+        h, _ = attention(lp["cross_attn"], xin, cfg, causal=False, pos=pos,
+                         precomputed_kv=cross)
+    x = x + h
+    return x + mlp(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps), cfg), kv
+
+
 def _dec_stack(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                enc: Optional[torch.Tensor] = None, cross: Optional[KVCache] = None,
                self_kv: Optional[KVCache] = None, pos: Optional[int] = None,
@@ -106,25 +131,16 @@ def _dec_stack(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     ``enc`` (forward) or the cached ``cross`` K/V (prefill and decode).
     With ``pos`` (decode) each layer attends to ``self_kv`` and writes its
     new K/V there; with ``fill`` (prefill) the prompt's K/V are written into
-    ``self_kv`` from position 0."""
+    ``self_kv`` from position 0, outside any checkpointed body."""
     S = x.shape[1]
+    run = layer_runner(cfg, fill or pos is not None)
     for i, lp in enumerate(params["dec_layers"]):
         cache = None if pos is None else KVCache(self_kv.k[i], self_kv.v[i])
-        h, kv = attention(lp["self_attn"], rms_norm(x, lp["ln1"], cfg.norm_eps), cfg,
-                          causal=True, cache=cache, pos=pos, collect_kv=fill)
+        cross_i = None if cross is None else KVCache(cross.k[i], cross.v[i])
+        x, kv = run(_dec_layer, lp, x, cfg, enc, cross_i, cache, pos, fill)
         if fill:
             self_kv.k[i, :, :S] = kv.k
             self_kv.v[i, :, :S] = kv.v
-        x = x + h
-        xin = rms_norm(x, lp["ln_x"], cfg.norm_eps)
-        if cross is None:
-            h, _ = attention(lp["cross_attn"], xin, cfg, causal=False, kv_x=enc,
-                             use_rope=False)
-        else:
-            h, _ = attention(lp["cross_attn"], xin, cfg, causal=False, pos=pos,
-                             precomputed_kv=KVCache(cross.k[i], cross.v[i]))
-        x = x + h
-        x = x + mlp(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)
     return x
 
 

@@ -18,9 +18,11 @@ cross-attention, is plain torch (``_sdpa``), as the reference computes it
 outside any kernel (``layers.py:137-169``).  The flash-attention op's
 autograd ``_FlashAttention`` takes its gradient from ``_sdpa`` recomputed
 from the saved inputs: the reference trains through ``_sdpa`` and has no
-backward kernel.  Not ported: ``_proj``'s ``pmm`` branch (training with
-gradient sharding) and ``_sdpa_q_chunked``, which no path without a cache
-reaches here.
+backward kernel.  The attention and MLP projections go through ``_proj``:
+with ``cfg.grad_shard``, ``models/pmm.py``'s matmul (its gradient lands in
+the weight's sharded layout), else one matmul over the contracted dims.
+Not ported: ``_sdpa_q_chunked``, which no path without a cache reaches
+here.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from torch import nn
 
 from ..kernels.flash_attention.ops import flash_attention
 from .config import ModelConfig
+from .pmm import matmul as _pmm
 
 __all__ = [
     "Params", "normal", "rms_norm", "layer_norm", "sinusoidal_pos", "rotary", "apply_rope",
@@ -149,10 +152,39 @@ def init_attn(gen: torch.Generator, cfg: ModelConfig) -> dict:
     return p
 
 
+def _sanitize_dw_spec(cfg: ModelConfig, w: torch.Tensor, dw_spec) -> tuple:
+    """Drop spec axes whose mesh size doesn't divide the weight dim."""
+    sizes = {"data": cfg.mesh_data_size, "model": cfg.mesh_model_size}
+    out = []
+    for dim, ax in zip(w.shape, dw_spec):
+        sz = sizes.get(ax, 1) if isinstance(ax, str) else 1
+        out.append(ax if (ax is not None and sz > 1 and dim % sz == 0) else None)
+    return tuple(out)
+
+
+def _contract(x: torch.Tensor, w: torch.Tensor, n: int) -> torch.Tensor:
+    """x's trailing ``n`` dims against w's leading ``n``, as one matmul."""
+    lead = x.shape[:x.dim() - n]
+    k = w.shape[:n].numel()
+    return (x.reshape(*lead, k) @ w.to(x.dtype).reshape(k, -1)).reshape(*lead, *w.shape[n:])
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor, subscripts: str, cfg: ModelConfig,
+          dw_spec) -> torch.Tensor:
+    """Weight projection ``einsum(subscripts, x, w)`` in x's dtype: the
+    ``pmm`` matmul with grad sharding when ``cfg.grad_shard``, else one
+    matmul over the contracted dims (x's trailing, w's leading)."""
+    if cfg.grad_shard:
+        meta = (_sanitize_dw_spec(cfg, w, dw_spec), cfg.mesh_data_size, cfg.mesh_model_size,
+                cfg.act_shard_spec or None)
+        return _pmm(x, w.to(x.dtype), subscripts, meta)
+    a, b = subscripts.split("->")[0].split(",")
+    return _contract(x, w, len(set(a) & set(b)))
+
+
 def _proj_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("bsd,dhk->bshk")``: x (B, S, D) @ w (D, H, hd)."""
-    D, H, hd = w.shape
-    return (x @ w.to(x.dtype).reshape(D, H * hd)).reshape(*x.shape[:-1], H, hd)
+    return _contract(x, w, 1)
 
 
 def _sdpa(q, k, v, *, causal: bool, q_offset: int = 0) -> torch.Tensor:
@@ -224,13 +256,14 @@ def attention(p, x: torch.Tensor, cfg: ModelConfig, *, causal: bool = True,
     The flash op's causal mask is top-left aligned, so a causal call needs
     as many keys as queries."""
     B, S, D = x.shape
-    q = _proj_heads(x, p["q"])
+    q = _proj(x, p["q"], "bsd,dhk->bshk", cfg, ("data", "model", None))
     if precomputed_kv is not None:
         k, v = precomputed_kv
     else:
         src = x if kv_x is None else kv_x
-        k = _proj_heads(src, p["k"])
-        v = _proj_heads(src, p["v"])
+        kv_spec = ("data", None, None)
+        k = _proj(src, p["k"], "bsd,dhk->bshk", cfg, kv_spec)
+        v = _proj(src, p["v"], "bsd,dhk->bshk", cfg, kv_spec)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         if precomputed_kv is None:
@@ -257,8 +290,7 @@ def attention(p, x: torch.Tensor, cfg: ModelConfig, *, causal: bool = True,
         o = _FlashAttention.apply(q, k, v, causal)
         if collect_kv:
             new_cache = KVCache(k, v)
-    H, hd = o.shape[2], o.shape[3]
-    out = o.reshape(B, S, H * hd) @ p["out"].to(o.dtype).reshape(H * hd, D)
+    out = _proj(o, p["out"], "bshk,hkd->bsd", cfg, ("model", None, "data"))
     return out, new_cache
 
 
@@ -282,12 +314,12 @@ def _act(x: torch.Tensor, name: str) -> torch.Tensor:
 
 
 def mlp(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    up = x @ p["up"].to(x.dtype)
+    up = _proj(x, p["up"], "bsd,df->bsf", cfg, ("data", "model"))
     if cfg.glu:
-        h = _act(x @ p["gate"].to(x.dtype), cfg.act) * up
+        h = _act(_proj(x, p["gate"], "bsd,df->bsf", cfg, ("data", "model")), cfg.act) * up
     else:
         h = _act(up, cfg.act)
-    return h @ p["down"].to(h.dtype)
+    return _proj(h, p["down"], "bsf,fd->bsd", cfg, ("model", "data"))
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,11 @@
 families, after the JAX package's ``models/lm.py``.  One init and three entry points,
 ``forward`` (full-sequence logits), ``prefill`` and ``decode``.
 
-Layers are an ``nn.ModuleList`` walked by a Python loop (no ``lax.scan``, no
-remat).  ``forward`` follows the caller's grad mode, as the reference's pure
+Layers are an ``nn.ModuleList`` walked by a Python loop (no ``lax.scan``).
+With ``cfg.remat`` each dense/moe/ssm layer, and each hybrid group (its
+ssm layers and the shared attention), runs under ``torch.utils.checkpoint``
+where the reference wraps its scanned body in ``jax.checkpoint``
+(``layer_runner``).  ``forward`` follows the caller's grad mode, as the reference's pure
 function does, so the train step differentiates it; ``prefill`` and
 ``decode`` run under ``torch.inference_mode``.  Caches keep the
 reference's stacked layout and are updated in place:
@@ -23,6 +26,7 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
 from .layers import (
@@ -104,11 +108,12 @@ def _init_moe_layer(gen: torch.Generator, cfg: ModelConfig) -> dict:
             "moe": init_moe(gen, cfg)}
 
 
-def _attn_layer(lp, x: torch.Tensor, cfg: ModelConfig, **kw):
+def _attn_layer(lp, x: torch.Tensor, cfg: ModelConfig, collect_kv: bool = False, **kw):
     """One pre-norm attention layer of the dense, vlm (MLP) or moe family."""
     if cfg.family != "moe":
-        return dense_layer(lp, x, cfg, **kw)
-    h, kv = attention(lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps), cfg, **kw)
+        return dense_layer(lp, x, cfg, collect_kv=collect_kv, **kw)
+    h, kv = attention(lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps), cfg,
+                      collect_kv=collect_kv, **kw)
     x = x + h
     return x + moe_block(lp["moe"], rms_norm(x, lp["ln2"], cfg.norm_eps), cfg), kv
 
@@ -163,31 +168,67 @@ def _split_cache(cfg: ModelConfig, cache):
     return cache
 
 
+def layer_runner(cfg: ModelConfig, fill: bool):
+    """How each layer body runs (here and in ``encdec``): under
+    ``torch.utils.checkpoint`` when ``cfg.remat`` is set, the forward builds
+    a graph and no cache is being filled, as the reference's
+    ``jax.checkpoint`` of each scanned body.  Only the body's inputs are kept
+    for the backward, which runs the body's forward again, the bf16 casts of
+    the weights and the B3/B4 kernels included, before its own backward."""
+    if cfg.remat and not fill and torch.is_grad_enabled():
+        return lambda body, *args: checkpoint(body, *args, use_reentrant=False)
+    return lambda body, *args: body(*args)
+
+
+def _ssm_layer(lp, x: torch.Tensor, cfg: ModelConfig):
+    h, st = ssm_block(lp, x, cfg)
+    return x + h, st
+
+
+def _hybrid_group(layers, shared, x: torch.Tensor, cfg: ModelConfig, fill: bool):
+    """One hybrid group: its ``shared_attn_every`` ssm layers, then the
+    shared attention layer.  Returns (x, the layers' states, the K/V)."""
+    states = []
+    for lp in layers:
+        x, st = _ssm_layer(lp, x, cfg)
+        states.append(st)
+    x, kv = dense_layer(shared, x, cfg, collect_kv=fill)
+    return x, states, kv
+
+
 def _layers(params: Params, x: torch.Tensor, cfg: ModelConfig, cache=None) -> torch.Tensor:
     """Every layer over the full sequence; with ``cache`` (prefill), the
-    fresh K/V and the SSM states are written into it."""
+    fresh K/V and the SSM states are written into it, outside any
+    checkpointed body."""
     fill = cache is not None
+    run = layer_runner(cfg, fill)
     states, kvs = _split_cache(cfg, cache)
     S = x.shape[1]
-    period = _hybrid_period(cfg)
-    for i, lp in enumerate(params["layers"]):
-        if cfg.family in _KV_FAMILIES:
-            x, kv = _attn_layer(lp, x, cfg, collect_kv=fill)
+    layers = params["layers"]
+    if cfg.family in _KV_FAMILIES:
+        for i, lp in enumerate(layers):
+            x, kv = run(_attn_layer, lp, x, cfg, fill)
             if fill:
                 kvs.k[i, :, :S] = kv.k
                 kvs.v[i, :, :S] = kv.v
-            continue
-        h, st = ssm_block(lp, x, cfg)
-        x = x + h
-        if fill:
-            states.conv[i] = st.conv
-            states.h[i] = st.h
-        if cfg.family == "hybrid" and (i + 1) % period == 0:
-            x, kv = dense_layer(params["shared_attn"], x, cfg, collect_kv=fill)
+        return x
+    if cfg.family == "ssm":
+        for i, lp in enumerate(layers):
+            x, st = run(_ssm_layer, lp, x, cfg)
             if fill:
-                g = i // period
-                kvs.k[g, :, :S] = kv.k
-                kvs.v[g, :, :S] = kv.v
+                states.conv[i] = st.conv
+                states.h[i] = st.h
+        return x
+    period = _hybrid_period(cfg)
+    for g in range(cfg.n_layers // period):
+        x, sts, kv = run(_hybrid_group, layers[g * period:(g + 1) * period],
+                         params["shared_attn"], x, cfg, fill)
+        if fill:
+            for j, st in enumerate(sts):
+                states.conv[g * period + j] = st.conv
+                states.h[g * period + j] = st.h
+            kvs.k[g, :, :S] = kv.k
+            kvs.v[g, :, :S] = kv.v
     return x
 
 

@@ -22,8 +22,10 @@ arithmetic, neither of which changes a routing decision:
   atomics, so its bf16 sums would differ from run to run.  The gather keeps
   runs repeatable.
 
-Not ported: ``_ep``'s expert-parallel sharding constraint and ``_emm``'s
-``pmm`` branch (mesh fields this config does not have).
+The expert products go through ``_emm``: ``pmm``'s matmul with grad
+sharding when ``cfg.grad_shard`` and ``cfg.moe_ep_shard`` are set.  Not
+ported: ``_ep``'s expert-parallel sharding constraint on the dispatch
+buffers, which the launcher's dry-run sets.
 
 ``moe_block_dense`` is the one-hot oracle of the tests (the same math when
 nothing is dropped).
@@ -35,7 +37,8 @@ from typing import Optional
 import torch
 
 from .config import ModelConfig
-from .layers import _act, normal
+from .layers import _act, _sanitize_dw_spec, normal
+from .pmm import matmul as _pmm
 
 __all__ = ["init_moe", "moe_block", "moe_block_dense", "route_topk", "MOE_CHUNK_TOKENS"]
 
@@ -133,6 +136,17 @@ def dispatch(router_logits: torch.Tensor, k: int, C: int):
             slot_of.reshape(T, k))
 
 
+def _emm(a: torch.Tensor, w: torch.Tensor, subs: str, dw_spec, cfg: ModelConfig):
+    """An expert product (E, C, ·) x (E, ·, ·): ``torch.bmm``, or the ``pmm``
+    matmul when ``cfg.grad_shard`` and ``cfg.moe_ep_shard`` are set
+    (``moe.py:132-137``)."""
+    if cfg.grad_shard and cfg.moe_ep_shard:
+        meta = (_sanitize_dw_spec(cfg, w, dw_spec), cfg.mesh_data_size, cfg.mesh_model_size,
+                None)
+        return _pmm(a, w.to(a.dtype), subs, meta)
+    return torch.bmm(a, w.to(a.dtype))
+
+
 def _moe_block_inner(p, x: torch.Tensor, cfg: ModelConfig,
                      capacity: Optional[int] = None) -> torch.Tensor:
     B, S, D = x.shape
@@ -146,9 +160,10 @@ def _moe_block_inner(p, x: torch.Tensor, cfg: ModelConfig,
     # gather each expert's tokens; an empty slot reads the zero row T
     xt_pad = torch.cat([xt, xt.new_zeros(1, D)])
     xe = xt_pad.index_select(0, slot_tok.reshape(-1)).reshape(E, C, D)
-    gate = torch.bmm(xe, p["e_gate"].to(xe.dtype))
-    up = torch.bmm(xe, p["e_up"].to(xe.dtype))
-    ye = torch.bmm(_act(gate, cfg.act) * up, p["e_down"].to(xe.dtype))   # (E, C, D)
+    gate = _emm(xe, p["e_gate"], "ecd,edf->ecf", ("model", "data", None), cfg)
+    up = _emm(xe, p["e_up"], "ecd,edf->ecf", ("model", "data", None), cfg)
+    ye = _emm(_act(gate, cfg.act) * up, p["e_down"], "ecf,efd->ecd", ("model", None, "data"),
+              cfg)                                                         # (E, C, D)
 
     # combine: gather each token's k weighted outputs, add strongest first
     yw = (ye * slot_w[..., None].to(ye.dtype)).reshape(E * C, D)

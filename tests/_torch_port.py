@@ -255,3 +255,94 @@ def np_strategy_registered(name: str):
         yield name
     finally:
         del J_STRATEGIES[name], T_STRATEGIES[name]
+
+
+# ---------------------------------------------------------------------------
+# meshes and shapes without devices
+# ---------------------------------------------------------------------------
+
+
+class MetaGenerator(torch.Generator):
+    """A CPU generator that reports the meta device, so the port's
+    ``init_params`` (which draws on ``generator.device``) builds a full-size
+    tree of meta tensors: shapes and dtypes, no memory."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
+@contextlib.contextmanager
+def fake_mesh(shape, axes):
+    """A ``DeviceMesh`` of ``shape`` on the fake process group (one process
+    stands for every rank; collectives do nothing), torn down on exit."""
+    import math
+
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.launch.mesh import make_mesh
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=math.prod(shape))
+    try:
+        yield make_mesh(shape, axes, device="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def free_port() -> int:
+    """A free TCP port on localhost for a process group's rendezvous."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+_RANK_PREAMBLE = """
+import json, sys
+import torch
+import torch.distributed as dist
+sys.path.insert(0, {src!r})
+rank, world, port = (int(a) for a in sys.argv[1:4])
+dist.init_process_group("gloo", init_method=f"tcp://localhost:{{port}}", rank=rank,
+                        world_size=world)
+torch.manual_seed(0)
+"""
+
+
+def run_ranks(body: str, world: int, tmp_path, timeout: float = 50.0) -> list:
+    """Run ``body`` in ``world`` processes joined by one gloo process group
+    (the preamble gives it ``rank``, ``world``, ``dist`` and ``json``, with
+    ``repro_torch`` importable and no JAX), then destroy the group.  Returns
+    each rank's standard output; raises if a rank fails or the whole run
+    takes longer than ``timeout`` seconds."""
+    import os
+    import subprocess
+    import sys
+    import textwrap
+    import time
+    from pathlib import Path
+
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    script = Path(tmp_path) / "ranks.py"
+    script.write_text(_RANK_PREAMBLE.format(src=src) + textwrap.dedent(body)
+                      + "\ndist.destroy_process_group()\n")
+    port = free_port()
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"
+    procs = [subprocess.Popen([sys.executable, str(script), str(r), str(world), str(port)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              env=env) for r in range(world)]
+    deadline = time.monotonic() + timeout
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=max(deadline - time.monotonic(), 1.0))
+            if p.returncode != 0:
+                raise AssertionError(f"rank failed ({p.returncode}):\n{err[-3000:]}")
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs

@@ -230,3 +230,132 @@ def test_heartbeat_stragglers_equal_the_reference(seed):
             jh.beat(h, dt)
         assert th.stragglers() == jh.stragglers()
         assert th.dead(timeout_s=3600.0) == [] and sorted(th.last_seen) == list(range(n))
+
+
+def _state():
+    """The reference's ``tests/test_checkpoint.py`` fixture, as tensors."""
+    return {"step": torch.tensor(7, dtype=torch.int32),
+            "params": {"w": torch.arange(12, dtype=torch.float32).reshape(3, 4),
+                       "b": torch.ones((4,), dtype=torch.bfloat16)},
+            "opt": [torch.zeros((3, 4)), {"v": torch.full((2,), 5.0)}]}
+
+
+def test_resharded_restore(tmp_path):
+    """``tests/test_checkpoint.py:84-93`` on the port: restored onto a
+    one-device mesh, every leaf replicated, its value and dtype the saved
+    ones; and onto a reference checkpoint of the same tree."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from repro_torch.distributed.sharding import PartitionSpec, tree_shardings
+    from _torch_port import fake_mesh
+    state = _state()
+    tckpt.save_checkpoint(tmp_path / "t", 4, state)
+    jckpt.save_checkpoint(tmp_path / "j", 4, {
+        "step": jnp.int32(7), "params": {"w": jnp.arange(12, dtype=jnp.float32).reshape(3, 4),
+                                         "b": jnp.ones((4,), jnp.bfloat16)},
+        "opt": [jnp.zeros((3, 4)), {"v": jnp.full((2,), 5.0)}]})
+    specs = {"step": PartitionSpec(), "params": {"w": PartitionSpec(None, None),
+                                                 "b": PartitionSpec(None)},
+             "opt": [PartitionSpec(None, None), {"v": PartitionSpec(None)}]}
+    with fake_mesh((1,), ("data",)) as mesh:
+        for path in ("t", "j"):
+            restored, step = tckpt.restore_resharded(tmp_path / path, state,
+                                                     tree_shardings(specs, mesh))
+            assert step == 4
+            w = restored["params"]["w"]
+            assert isinstance(w, DTensor) and tuple(w.placements) == (Replicate(),)
+            for got, want in ((w, state["params"]["w"]), (restored["params"]["b"],
+                                                          state["params"]["b"]),
+                              (restored["opt"][1]["v"], state["opt"][1]["v"])):
+                assert got.dtype == want.dtype
+                torch.testing.assert_close(got.to_local(), want, rtol=0, atol=0)
+        assert tckpt.restore_resharded(tmp_path / "missing", state,
+                                       tree_shardings(specs, mesh)) is None
+
+
+def test_resharded_restore_onto_a_2x4_fake_mesh(tmp_path):
+    """A training state's checkpoint restored onto a (2, 4) mesh's placements
+    from the sharding rules: each leaf a DTensor of the saved global shape
+    with its spec's placements, and this rank's shard the saved tensor's
+    block at mesh coordinate (0, 0)."""
+    import dataclasses
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import get_arch
+    from repro_torch.device import make_generator
+    from repro_torch.distributed import sharding as tsh
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train.train_step import TrainState, init_train_state
+    from _torch_port import fake_mesh
+    cfg = dataclasses.replace(get_arch("qwen3-8b").smoke, dtype=torch.float32)
+    opt = topt.adamw(lambda s: 1e-3)
+    state = init_train_state(make_generator(0), cfg, opt)
+    tckpt.save_checkpoint(tmp_path, 2, state)
+    with fake_mesh((2, 4), ("data", "model")) as mesh:
+        pspecs = tsh.param_specs(state.params, cfg, mesh, tsh.rules_for(cfg, mesh, "train"))
+        specs = TrainState(tsh.PartitionSpec(), pspecs,
+                           tsh.opt_state_specs(state.opt_state, pspecs, state.params, mesh))
+        shardings = tsh.tree_shardings(specs, mesh)
+        restored, step = tckpt.restore_resharded(tmp_path, state, shardings)
+    assert step == 2
+    saved, got, want = [], [], []
+    tckpt._flatten(state, saved)
+    tckpt._flatten(restored, got)
+    tckpt._flatten(shardings, want)
+    assert len(saved) == len(got) == len(want) > 10
+    n_sharded = 0
+    for s, g, sh in zip(saved, got, want):
+        assert isinstance(g, DTensor) and g.shape == s.shape and g.dtype == s.dtype
+        assert tuple(g.placements) == sh.placements
+        block = s
+        for mesh_dim, p in enumerate(sh.placements):
+            if p.is_shard():
+                size = -(-block.shape[p.dim] // mesh.shape[mesh_dim])
+                block = block.narrow(p.dim, 0, min(size, block.shape[p.dim]))
+                n_sharded += 1
+        torch.testing.assert_close(g.to_local(), block, rtol=0, atol=0)
+    assert n_sharded > 0
+
+
+_RESHARD_8 = """
+import dataclasses
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs import get_arch
+from repro_torch.device import make_generator
+from repro_torch.distributed import checkpoint as tckpt
+from repro_torch.distributed import sharding as tsh
+from repro_torch.train import optimizer as topt
+from repro_torch.train.train_step import TrainState, init_train_state
+cfg = dataclasses.replace(get_arch("zamba2-2.7b").smoke, dtype=torch.float32)
+opt = topt.adafactor(lambda s: 1e-3)
+state = init_train_state(make_generator(0), cfg, opt)
+mesh = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
+pspecs = tsh.param_specs(state.params, cfg, mesh, tsh.rules_for(cfg, mesh, "train"))
+specs = TrainState(tsh.PartitionSpec(), pspecs,
+                   tsh.opt_state_specs(state.opt_state, pspecs, state.params, mesh))
+restored, step = tckpt.restore_resharded({ckpt!r}, state, tsh.tree_shardings(specs, mesh))
+saved, got = [], []
+tckpt._flatten(state, saved)
+tckpt._flatten(restored, got)
+same = all(torch.equal(g.full_tensor(), s) for s, g in zip(saved, got))
+sharded = sum(any(p.is_shard() for p in g.placements) for g in got)
+print(json.dumps({{"step": step, "same": same, "leaves": len(got), "sharded": sharded}}))
+"""
+
+
+def test_resharded_restore_on_8_gloo_ranks(tmp_path):
+    """zamba2's smoke training state (Adafactor) restored onto a (2, 4) gloo
+    mesh by the rules' placements: on every rank, every leaf's global value
+    is the saved one."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.device import make_generator
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train.train_step import init_train_state
+    from _torch_port import run_ranks
+    cfg = dataclasses.replace(get_arch("zamba2-2.7b").smoke, dtype=torch.float32)
+    state = init_train_state(make_generator(0), cfg, topt.adafactor(lambda s: 1e-3))
+    tckpt.save_checkpoint(tmp_path / "ckpt", 5, state)
+    outs = [json.loads(o.strip().splitlines()[-1])
+            for o in run_ranks(_RESHARD_8.format(ckpt=str(tmp_path / "ckpt")), 8, tmp_path)]
+    assert all(o == {"step": 5, "same": True, "leaves": outs[0]["leaves"],
+                     "sharded": outs[0]["sharded"]} for o in outs), outs
+    assert outs[0]["sharded"] > 0

@@ -113,3 +113,41 @@ def test_restart_of_a_train_step_reproduces_its_losses(tmp_path):
     assert len(got) == len(want)
     for a, b in zip(got, want):
         torch.testing.assert_close(a.value(), b.value(), rtol=0, atol=0)
+
+
+def test_restart_without_a_checkpoint_starts_from_the_initial_values(tmp_path):
+    """One loop and one ``init_state``: a failure before the first checkpoint
+    (``ckpt_every=4``, failure at step 2), then ``run`` again with the same
+    ``init_state``, which the train step updated in place.  The restart's
+    losses are the uninterrupted run's, bit for bit, and so is its state."""
+    cfg = port_config(JModelConfig("t", "dense", n_layers=2, d_model=16, n_heads=2,
+                                   n_kv_heads=1, head_dim=8, d_ff=32, vocab_size=32,
+                                   remat=False, dtype="float32"))
+    opt = topt.adamw(topt.warmup_cosine(1e-2, warmup=2, total=20))
+    step = tts.make_train_step(cfg, opt, accum_steps=2)
+    losses = []
+
+    def logged(state, batch):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        return state, m
+
+    def batch_fn(s):
+        toks = np.random.default_rng(100 + s).integers(0, 32, (4, 9)).astype(np.int32)
+        return {"tokens": torch.as_tensor(toks[:, :-1]), "labels": torch.as_tensor(toks[:, 1:])}
+
+    golden_loop = FaultTolerantLoop(logged, batch_fn, tmp_path / "golden", ckpt_every=4)
+    golden, _ = golden_loop.run(tts.init_train_state(make_generator(0), cfg, opt), 6)
+    golden_losses, losses[:] = list(losses), []
+
+    init = tts.init_train_state(make_generator(0), cfg, opt)
+    loop = FaultTolerantLoop(logged, batch_fn, tmp_path / "crashy", ckpt_every=4)
+    with pytest.raises(RuntimeError, match="simulated node failure at step 2"):
+        loop.run(init, 6, simulate_failure_at=2)
+    assert losses == golden_losses[:2]
+    losses[:] = []
+    resumed, _ = loop.run(init, 6)
+    assert losses == golden_losses
+    assert int(resumed.step) == 6
+    for a, b in zip(topt.leaf_groups(resumed.params), topt.leaf_groups(golden.params)):
+        torch.testing.assert_close(a.value(), b.value(), rtol=0, atol=0)

@@ -35,9 +35,12 @@ def test_port_imports_neither_jax_nor_reference():
         "          'service.scheduler', 'service.server', 'service.wire', 'service.worker',\n"
         "          'service.transport', 'distributed.checkpoint', 'distributed.fault',\n"
         "          'launch.serve_tabular', 'train.optimizer', 'train.train_step',\n"
-        "          'data.pipeline', 'launch.train'):\n"
+        "          'data.pipeline', 'launch.train', 'launch.mesh', 'distributed.sharding',\n"
+        "          'distributed.compression', 'models.pmm'):\n"
         "    assert 'repro_torch.' + m in names, m\n"
         "assert not bad, bad\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized(), 'importing the port started a process group'\n"
         "print(len(names))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(SRC))
@@ -76,6 +79,7 @@ def test_entry_points_raise_without_a_card(no_cuda):
     from repro_torch.data.pipeline import SyntheticCorpus, corpus_to_coded, select_corpus_subset
     from repro_torch.train.optimizer import adamw
     from repro_torch.train.train_step import init_train_state
+    from repro_torch.launch.mesh import make_mesh, make_production_mesh
     corpus = SyntheticCorpus(16, 9, 64)
     X, y = _small_data()
     coded = factorize(X, y, device="cpu")
@@ -103,6 +107,8 @@ def test_entry_points_raise_without_a_card(no_cuda):
         lambda: corpus_to_coded(corpus),
         lambda: init_train_state(None, configs.get_arch("mamba2-130m").smoke,
                                  adamw(lambda s: 1e-3)),
+        lambda: make_mesh((1, 1), ("data", "model")),
+        lambda: make_production_mesh(),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
