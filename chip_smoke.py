@@ -206,11 +206,25 @@ Phases, in order; any failure exits non-zero and prints no result:
    placements; a small training checkpoint restored onto the mesh, every
    global value the saved one.
 
+17. The dry-run (``launch/dryrun.py``, ``launch/costs.py``) on the card:
+   a world-size-1 NCCL group and a (1, 1) CUDA mesh; zamba2-2.7b's
+   published config at two one-card cells, train_4k_card (2 x 4096 in 2
+   microbatches of 1 x 4096, AdamW, remat) and prefill_card (4 x 1024).
+   Each is first estimated by ``dryrun.run_cell`` on fake CUDA tensors, then
+   built for real from the same ``build_cell`` (seeded) and its step run
+   once under the same FLOP counter: B3 36 and B4 216 launches (train), 9
+   and 54 (prefill), no plain version called, finite loss and grad norm or
+   logits; the estimated peak within 15 % of ``max_memory_allocated``, the
+   FLOPs within 1e-6; the roofline terms, model FLOPs and the useful ratio
+   printed.  Then zamba2-2.7b train_4k traced on the (16, 16) production
+   mesh over a fake process group, in a subprocess.
+
 Then it prints the ``{"kernels": [...]}`` line (B3's entry also carries its
 times at the other prefill shapes and its launches per prefill of each
 served model; every entry its launches in the training run, per training
-step and per ``train_4k`` step), each phase's seconds, the ``nvidia-smi`` line and, last, ``{"ok": true,
-"device": {...}}``.  Imports nothing of JAX.
+step and per ``train_4k`` step, and in each phase-17 cell), each phase's
+seconds, the ``nvidia-smi`` line and, last, ``{"ok": true, "device":
+{...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -2644,6 +2658,140 @@ def phase16_mesh(torch, dev) -> None:
     print(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 17: the dry-run held on the card.  Its two one-card cells: zamba2-2.7b
+# train_4k at 2 x 4096 (the reference's accum rule gives min(8, 2) = 2
+# microbatches of 1 x 4096, phase 15's train_4k) and phase 9's prefill
+DRYRUN_CELLS = (("train_4k_card", 4096, 2, "train"), ("prefill_card", 1024, 4, "prefill"))
+DRYRUN_LAUNCHES = {"train_4k_card": {"flash_attention": 36, "ssd_scan": 216},
+                   "prefill_card": {"flash_attention": 9, "ssd_scan": 54}}
+DRYRUN_PEAK_RTOL = 0.15        # estimated peak against max_memory_allocated
+DRYRUN_FLOPS_RTOL = 1e-6       # fake-traced FLOPs against the real step's, same counter
+
+
+def phase17_dryrun(torch, dev, K) -> dict:
+    """The dry-run (``launch/dryrun.py``, ``launch/costs.py``) on the card: a
+    world-size-1 NCCL group and a (1, 1) CUDA mesh.  For each of
+    ``DRYRUN_CELLS``: (1) ``dryrun.run_cell``'s estimate on fake CUDA
+    tensors; (2) the same cell for real: ``build_cell``'s operands
+    materialised on the card (params from seed 0, inputs from seed 17), its
+    step run once under the same FLOP counter, with both kernels' launches
+    and every plain version's calls counted; (3) estimate against the run:
+    peak bytes within ``DRYRUN_PEAK_RTOL`` of ``max_memory_allocated``,
+    FLOPs within ``DRYRUN_FLOPS_RTOL``, the launches ``DRYRUN_LAUNCHES``,
+    no plain version, finite outputs; the roofline terms and the useful
+    FLOPs printed beside them.  (4) One production-mesh cell traced on this
+    machine: zamba2-2.7b train_4k at (16, 16) on a fake process group in a
+    subprocess.  Returns each kernel's launches per cell."""
+    import socket
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.costs import CostCounter
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.config import ShapeSpec
+
+    t_phase = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1)
+    launches = {}
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+        for name, seq, batch, kind in DRYRUN_CELLS:
+            shape = ShapeSpec(name, seq, batch, kind)
+            _free(torch)
+            rec = dryrun.run_cell("zamba2-2.7b", shape, mesh=mesh, verbose=False)
+            if rec.get("status") != "ok":
+                fail(f"dry-run: {name} was not traced: {rec}")
+            est_peak = rec["memory"]["peak_bytes"]
+            est_flops = rec["roofline"]["hlo_flops_per_dev"]
+            r = rec["roofline"]
+            print(f"dry-run estimate, zamba2-2.7b {name} ({batch} x {seq}, {kind}, accum "
+                  f"{rec['accum']}) on the (1, 1) mesh: trace {rec['trace_s']} s over "
+                  f"(layers, microbatches) {rec['traced']}; peak {est_peak / 2 ** 30:.3f} GiB "
+                  f"(operands {rec['memory']['argument_bytes'] / 2 ** 30:.3f}), "
+                  f"{est_flops / 1e12:.3f} TFLOP, {r['hlo_bytes_per_dev'] / 1e9:.1f} GB moved "
+                  f"(no fusion), {r['collective_bytes_per_dev']:.0f} collective bytes; roofline "
+                  f"compute {r['compute_s'] * 1e3:.3f} ms / memory {r['memory_s'] * 1e3:.3f} ms / "
+                  f"collective {r['collective_s'] * 1e3:.3f} ms -> {r['dominant']}")
+
+            _free(torch)
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            cell = dryrun.build_cell("zamba2-2.7b", shape, mesh, seed=0, device="cuda")
+            dryrun.fill_inputs_(cell, seed=17)
+            K.reset_launch_counts()
+            with plain_versions_counted() as plain, implicit_replication():
+                with CostCounter() as cc:
+                    out = cell.step(*cell.args)
+                torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            launches[name] = {k: v for k, v in K.launch_counts().items()
+                              if k in DRYRUN_LAUNCHES[name]}
+            peak = torch.cuda.max_memory_allocated() - base
+            whole = lambda t: t.full_tensor() if isinstance(t, DTensor) else t  # noqa: E731
+            if kind == "train":
+                m = out[1]
+                vals = torch.stack([whole(m["loss"]).float(), whole(m["grad_norm"]).float()])
+                what = f"loss {float(vals[0]):.4f}, grad norm {float(vals[1]):.4f}"
+            else:
+                vals = whole(out[0]).float()
+                what = f"logits {tuple(vals.shape)}"
+                if vals.shape != (batch, 1, cell.cfg.vocab_size):
+                    fail(f"dry-run: {name} logits {tuple(vals.shape)}")
+            peak_err = abs(est_peak - peak) / peak
+            flops_err = abs(est_flops - cc.flops) / cc.flops
+            mflops = r["model_flops_global"]
+            print(f"  the same cell run on the card ({run_s:.1f} s with its build): {what}; "
+                  f"peak {peak / 2 ** 30:.3f} GiB (max_memory_allocated above the "
+                  f"{base / 2 ** 30:.3f} GiB held before), estimate off by {peak_err:.4f} "
+                  f"(limit {DRYRUN_PEAK_RTOL}); FLOPs {cc.flops / 1e12:.6f} T counted, "
+                  f"estimate off by {flops_err:.2e} (limit {DRYRUN_FLOPS_RTOL}); model FLOPs "
+                  f"{mflops / 1e12:.3f} T (launch/flops), useful ratio {mflops / cc.flops:.4f}; "
+                  f"launches {launches[name]} (expected {DRYRUN_LAUNCHES[name]}); plain "
+                  f"versions called {plain.calls or 'none'}  [{smi_line()}]")
+            if not bool(torch.isfinite(vals).all()):
+                fail(f"dry-run: {name} gave non-finite outputs ({what})")
+            if launches[name] != DRYRUN_LAUNCHES[name] or plain.calls:
+                fail(f"dry-run: {name} launches {launches[name]}, plain calls {plain.calls}")
+            if not peak_err <= DRYRUN_PEAK_RTOL:
+                fail(f"dry-run: {name} peak estimate {est_peak} against {peak}")
+            if not flops_err <= DRYRUN_FLOPS_RTOL:
+                fail(f"dry-run: {name} FLOPs estimate {est_flops} against {cc.flops}")
+            del cell, out, vals
+    finally:
+        dist.destroy_process_group()
+    _free(torch)
+
+    # (4) a production-mesh cell traced on this machine, in a process of its own
+    out_json = ROOT / "build" / "phase17_dryrun.json"
+    out_json.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                           "zamba2-2.7b", "--shape", "train_4k", "--mesh", "single", "--force",
+                           "--out", str(out_json)], capture_output=True, text=True,
+                          timeout=900, cwd=ROOT, env={**__import__("os").environ,
+                                                      "PYTHONPATH": str(ROOT / "src")})
+    cellrec = (json.loads(out_json.read_text()).get("zamba2-2.7b|train_4k|single", {})
+               if out_json.exists() else {})
+    if proc.returncode != 0 or cellrec.get("status") != "ok":
+        fail(f"dry-run: the (16, 16) trace failed ({proc.returncode}): {cellrec} "
+             f"{proc.stdout[-1000:]} {proc.stderr[-2000:]}")
+    r = cellrec["roofline"]
+    print(f"dry-run, zamba2-2.7b train_4k on the (16, 16) production mesh (fake process "
+          f"group, {time.perf_counter() - t0:.1f} s in its process, trace {cellrec['trace_s']} "
+          f"s): peak {cellrec['memory']['peak_per_device_gb']:.2f} GB a device, fits 80 GB "
+          f"{cellrec['fits_80gb']}; {r['hlo_flops_per_dev'] / 1e12:.3f} TFLOP a device; "
+          f"compute {r['compute_s'] * 1e3:.2f} ms / memory {r['memory_s'] * 1e3:.2f} ms / "
+          f"collective {r['collective_s'] * 1e3:.2f} ms -> {r['dominant']}")
+    print(f"phase 17: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3042,6 +3190,12 @@ def main() -> None:
 
     # --- 16. the mesh layer on one card --------------------------------------------
     phase16_mesh(torch, dev)
+
+    # --- 17. the dry-run held on the card ---------------------------------------------
+    dry = phase17_dryrun(torch, dev, K)
+    for entry in kernels:
+        entry["launches_phase17"] = {cell: counts.get(entry["name"], 0)
+                                     for cell, counts in dry.items()}
 
     print(json.dumps({"kernels": kernels}))
     print(smi_line())

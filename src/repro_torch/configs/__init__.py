@@ -13,7 +13,7 @@ from . import (
     gemma_2b, granite_3_2b, kimi_k2_1t, llama3_405b, mamba2_130m, phi3_vision_4p2b,
     qwen2_moe_a2p7b, qwen3_8b, whisper_base, zamba2_2p7b,
 )
-from .base import ArchDef, smoke_batch
+from .base import ArchDef, decode_operand_specs, input_specs, smoke_batch
 
 ARCHS: Dict[str, ArchDef] = {
     mod.ARCH.arch_id: mod.ARCH
@@ -31,4 +31,4 @@ def get_arch(arch_id: str) -> ArchDef:
     return ARCHS[arch_id]
 
 
-__all__ = ["ARCHS", "get_arch", "ArchDef", "smoke_batch"]
+__all__ = ["ARCHS", "get_arch", "ArchDef", "smoke_batch", "input_specs", "decode_operand_specs"]

@@ -43,7 +43,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
 
 from ..models.config import ModelConfig
 from ..models.layers import KVCache, Params
@@ -53,7 +53,7 @@ from .checkpoint import _flatten, _unflatten
 __all__ = [
     "LOGICAL_AXES", "PartitionSpec", "NamedSharding", "RuleSet", "rules_for", "data_axes",
     "param_count_estimate", "param_specs", "opt_state_specs", "batch_specs", "cache_specs",
-    "tree_shardings", "spec_placements", "distribute_tree",
+    "tree_shardings", "spec_placements", "distribute_tree", "shard_locally",
 ]
 
 # leaf name -> logical axes (excluding any leading stacked 'layers' dims)
@@ -369,12 +369,14 @@ def spec_placements(spec, mesh: DeviceMesh) -> tuple:
     """One placement per mesh dim: ``Shard(d)`` where ``spec`` names the mesh
     dim on tensor dim ``d``, else ``Replicate()``.  A tensor dim split over
     several mesh dims is split over them in mesh-dim order, as a
-    ``PartitionSpec`` tuple entry splits it (the first axis major)."""
+    ``PartitionSpec`` tuple entry splits it (the first axis major).  A mesh
+    dim of size 1 splits nothing and is ``Replicate()`` (DTensor's views
+    refuse some shards over one device)."""
     out = []
-    for axis in mesh.mesh_dim_names:
+    for axis, size in zip(mesh.mesh_dim_names, mesh.shape):
         dims = [d for d, e in enumerate(spec)
                 if e == axis or (isinstance(e, tuple) and axis in e)]
-        out.append(Shard(dims[0]) if dims else Replicate())
+        out.append(Shard(dims[0]) if dims and size > 1 else Replicate())
     return tuple(out)
 
 
@@ -407,5 +409,37 @@ def distribute_tree(tree: Any, specs: Any, mesh: DeviceMesh) -> Any:
     if len(leaves) != len(shardings):
         raise ValueError(f"distribute_tree: {len(shardings)} specs for {len(leaves)} leaves")
     placed = [distribute_tensor(leaf.detach(), sh.mesh, list(sh.placements))
+              for leaf, sh in zip(leaves, shardings)]
+    return _unflatten(tree, iter(placed))
+
+
+def _local_shard(t: torch.Tensor, placements, mesh: DeviceMesh) -> DTensor:
+    """``t``'s DTensor with this rank's chunk as its local tensor (a copy
+    when it is a part), nothing communicated; a tensor dim split over
+    several mesh dims is chunked in mesh-dim order, as DTensor splits it."""
+    coord = mesh.get_coordinate()
+    local = t
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            local = local.chunk(mesh.size(i), dim=p.dim)[coord[i]]
+    if local is not t:
+        local = local.clone(memory_format=torch.contiguous_format)
+    return DTensor.from_local(local, mesh, list(placements), run_check=False,
+                              shape=t.shape, stride=t.stride())
+
+
+def shard_locally(tree: Any, specs: Any, mesh: DeviceMesh) -> Any:
+    """``tree`` with every leaf a DTensor placed by its spec on ``mesh``, each
+    rank keeping its own chunk of the full leaf it holds, with no
+    communication: for trees every rank draws alike (a seeded init) and for
+    fake tensors on the fake process group, where ``distribute_tree``'s
+    broadcast cannot run.  Leaves in the order ``checkpoint`` walks them."""
+    leaves: list = []
+    shardings: list = []
+    _flatten(tree, leaves)
+    _flatten(tree_shardings(specs, mesh), shardings)
+    if len(leaves) != len(shardings):
+        raise ValueError(f"shard_locally: {len(shardings)} specs for {len(leaves)} leaves")
+    placed = [_local_shard(leaf.detach(), sh.placements, sh.mesh)
               for leaf, sh in zip(leaves, shardings)]
     return _unflatten(tree, iter(placed))

@@ -20,26 +20,33 @@ reference's ``tests/test_kernels.py:145`` holds its Pallas kernel.
 
 ``launches`` counts the kernel's launches; it is incremented only where the
 kernel is launched.
+
+``flash_attention_cuda`` is a ``torch.library.custom_op``
+(``repro_torch::flash_attention``), so that a trace on fake tensors (the
+dry-run, ``launch/dryrun.py``) sees one op: its ``register_fake`` gives the
+output (B, Sq, H, hd) in q's dtype on q's device and launches nothing, and
+its FLOP formula (``torch.utils.flop_counter``) counts ``4 B H Sq Skv hd``,
+the two products, as the formula of ``scaled_dot_product_attention``
+counts them, causal or not.  On real tensors the op runs the launch below
+and nothing else.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import _build
 
-__all__ = ["flash_attention_cuda", "launches"]
+__all__ = ["flash_attention_cuda", "flash_attention_flops", "launches"]
 
 launches = 0
 MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                         causal: bool = True) -> torch.Tensor:
-    """q (B, Sq, H, hd), k/v (B, Skv, Kh, hd), contiguous, float32 or bfloat16
-    -> (B, Sq, H, hd) in q's dtype."""
-    global launches
-    if not all(x.is_cuda and x.device == q.device for x in (q, k, v)):
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, fake: bool = False) -> None:
+    """Raises on what the kernel does not take (``fake``: meta tensors too)."""
+    if not all((x.is_cuda or (fake and x.is_meta)) and x.device == q.device for x in (q, k, v)):
         raise ValueError("flash_attention_cuda: tensors must be on one CUDA device")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention_cuda: q, k, v must share a dtype in "
@@ -57,6 +64,17 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"outside 0 < hd <= {MAX_HEAD_DIM}, B*H <= 65535, Skv > 0")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention_cuda: tensors must be contiguous")
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         causal: bool = True) -> torch.Tensor:
+    """q (B, Sq, H, hd), k/v (B, Skv, Kh, hd), contiguous, float32 or bfloat16
+    -> (B, Sq, H, hd) in q's dtype."""
+    global launches
+    _check(q, k, v)
+    B, Sq, H, hd = q.shape
+    Skv, Kh = k.shape[1], k.shape[2]
     if B * Sq * H == 0:
         return torch.empty_like(q)
     scale = hd ** -0.5
@@ -71,6 +89,19 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _build.check(err, "flash_attention")
     launches += 1
     return out if out.shape[3] == hd else out[..., :hd].contiguous()
+
+
+@flash_attention_cuda.register_fake
+def _(q, k, v, *, causal=True):
+    _check(q, k, v, fake=True)
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def flash_attention_flops(q_shape, k_shape, v_shape, *, causal=True, out_shape=None) -> int:
+    """``4 B H Sq Skv hd``: QK^T and PV, each ``2 B H Sq Skv hd``."""
+    B, Sq, H, hd = q_shape
+    return 4 * B * H * Sq * k_shape[1] * hd
 
 
 def _tma_ready(x: torch.Tensor) -> torch.Tensor:

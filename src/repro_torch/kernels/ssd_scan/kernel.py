@@ -22,14 +22,28 @@ holds the Pallas kernel so); the final state within 1e-3 relative.
 
 ``launches`` counts the kernel's launches; it is incremented only where the
 kernel is launched.
+
+``ssd_scan_cuda`` is a ``torch.library.custom_op`` (``repro_torch::ssd_scan``),
+so that a trace on fake tensors (the dry-run, ``launch/dryrun.py``) sees one
+op: its ``register_fake`` gives y (B, S, H, P) in x's dtype and the final
+state (B, H, P, N) float32 on x's device, and the bfloat16 body's scratch,
+which the real op holds during the launch, and launches nothing.  Its FLOP
+formula (``ssd_scan_flops``) counts the products of the three kernels per
+head and chunk of length L (the source's bound, ``csrc/ssd_scan.cu``):
+C B^T (2 L^2 N), its decay-weighted rows times x dt (2 L^2 P), the chunk
+state (2 L P N) and the entering state's C h^T (2 L P N), so
+``B H (sum over chunks of 2 L^2 (N + P)) + 4 B H S P N``, with the chunk
+``chunk_for`` picks.  On real tensors the op runs the launch below and
+nothing else.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import _build
 
-__all__ = ["ssd_scan_cuda", "chunk_for", "launches"]
+__all__ = ["ssd_scan_cuda", "ssd_scan_flops", "chunk_for", "launches"]
 
 launches = 0
 _SMEM_LIMIT = 227 * 1024        # dynamic shared memory a Hopper block may use
@@ -88,17 +102,10 @@ def _inner_contiguous(t: torch.Tensor) -> bool:
     return t.stride(3) == 1 and t.stride(2) == t.shape[3]
 
 
-def ssd_scan_cuda(x, dt, a, bm, cm, *, block_q: int = 128):
-    """Model layout: x (B, S, H, P), dt (B, S, H) float32, a (H,) float32,
-    bm/cm (B, S, G, N) in x's dtype (float32 or bfloat16) -> y (B, S, H, P)
-    in x's dtype and the final state (B, H, P, N) float32.
-
-    x, bm and cm may be views with any batch and position strides (bm and cm
-    with the same strides) as long as their (heads, width) dims are
-    contiguous; dt and a must be contiguous.  S need not be a multiple of
-    the chunk."""
-    global launches
-    if not all(t.is_cuda and t.device == x.device for t in (x, dt, a, bm, cm)):
+def _check(x, dt, a, bm, cm, fake: bool = False) -> None:
+    """Raises on what the kernel does not take (``fake``: meta tensors too)."""
+    if not all((t.is_cuda or (fake and t.is_meta)) and t.device == x.device
+               for t in (x, dt, a, bm, cm)):
         raise ValueError("ssd_scan_cuda: tensors must be on one CUDA device")
     if x.dtype not in _DTYPES or bm.dtype != x.dtype or cm.dtype != x.dtype:
         raise TypeError(f"ssd_scan_cuda: x, bm, cm must share a dtype in {list(_DTYPES)}")
@@ -117,14 +124,37 @@ def ssd_scan_cuda(x, dt, a, bm, cm, *, block_q: int = 128):
             and dt.is_contiguous() and a.is_contiguous()):
         raise ValueError("ssd_scan_cuda: x, bm, cm need contiguous (heads, width) dims "
                          "and bm, cm equal strides; dt and a must be contiguous")
+
+
+def _scratch(x, Q: int, P: int, N: int):
+    """The bfloat16 body's float32 scratch: B H ceil(S / Q) (2 P N + 1) floats."""
+    B, S, H = x.shape[:3]
+    return torch.empty(B * H * -(-S // Q) * (2 * P * N + 1), dtype=torch.float32,
+                       device=x.device)
+
+
+@torch.library.custom_op("repro_torch::ssd_scan", mutates_args=())
+def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bm: torch.Tensor,
+                  cm: torch.Tensor, *, block_q: int = 128) -> tuple[torch.Tensor, torch.Tensor]:
+    """Model layout: x (B, S, H, P), dt (B, S, H) float32, a (H,) float32,
+    bm/cm (B, S, G, N) in x's dtype (float32 or bfloat16) -> y (B, S, H, P)
+    in x's dtype and the final state (B, H, P, N) float32.
+
+    x, bm and cm may be views with any batch and position strides (bm and cm
+    with the same strides) as long as their (heads, width) dims are
+    contiguous; dt and a must be contiguous.  S need not be a multiple of
+    the chunk."""
+    global launches
+    _check(x, dt, a, bm, cm)
+    B, S, H, P = x.shape
+    G, N = bm.shape[2], bm.shape[3]
     y = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
     h = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
     if B * S * H == 0:
         return y, h.zero_()
     bf16 = x.dtype == torch.bfloat16
     Q = chunk_for(block_q, S, P, N, bf16=bf16)
-    scratch = (torch.empty(B * H * -(-S // Q) * (2 * P * N + 1), dtype=torch.float32,
-                           device=x.device) if bf16 else None)
+    scratch = _scratch(x, Q, P, N) if bf16 else None
     lib = _build.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.launch_ssd_scan(x.data_ptr(), dt.data_ptr(), a.data_ptr(), bm.data_ptr(),
@@ -134,3 +164,28 @@ def ssd_scan_cuda(x, dt, a, bm, cm, *, block_q: int = 128):
     _build.check(err, "ssd_scan")
     launches += 1
     return y, h
+
+
+@ssd_scan_cuda.register_fake
+def _(x, dt, a, bm, cm, *, block_q=128):
+    _check(x, dt, a, bm, cm, fake=True)
+    B, S, H, P = x.shape
+    N = bm.shape[3]
+    y = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
+    h = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+    if x.dtype == torch.bfloat16 and B * S * H:
+        _scratch(x, chunk_for(block_q, S, P, N, bf16=True), P, N)   # held during the launch
+    return y, h
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan, get_raw=True)
+def ssd_scan_flops(x, dt, a, bm, cm, *, block_q=128, out_val=None) -> int:
+    """The products of the three kernels (module docstring): per head and
+    chunk of length L, ``2 L^2 (N + P) + 4 L P N``."""
+    B, S, H, P = x.shape
+    N = bm.shape[3]
+    if B * S * H == 0:
+        return 0
+    Q = chunk_for(block_q, S, P, N, bf16=x.dtype == torch.bfloat16)
+    full, rem = divmod(S, Q)
+    return B * H * (2 * (N + P) * (full * Q * Q + rem * rem) + 4 * S * P * N)

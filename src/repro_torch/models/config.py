@@ -6,12 +6,14 @@ runs each layer body, or each hybrid group, under
 ``torch.utils.checkpoint`` when the forward builds a graph.  ``grad_shard``
 with ``mesh_data_size``, ``mesh_model_size`` and ``act_shard_spec`` routes
 the big projections through ``models/pmm.py``; ``moe_ep_shard`` also routes
-the expert products there.  Left out (see ROADMAP, deliberate differences):
-``scan_layers`` (layers are a Python loop), ``attn_impl`` / ``ssm_impl``
-(the device picks the implementation: the CUDA kernels for CUDA tensors,
-their plain versions on the CPU), and the launcher's own use of
-``act_shard_spec`` and ``moe_ep_shard`` as sharding constraints on the
-residual stream and the MoE dispatch buffers, which come with the dry-run.
+the expert products there.  The launcher (``launch/dryrun.py``) sets
+``act_shard_spec``, which also pins the residual stream at each layer body,
+and ``moe_ep_shard``, which also pins the MoE dispatch buffers to experts
+over ``model``; both redistribute DTensors and leave plain tensors as they
+are.  Left out (see ROADMAP, deliberate differences): ``scan_layers``
+(layers are a Python loop) and ``attn_impl`` / ``ssm_impl`` (the device
+picks the implementation: the CUDA kernels for CUDA tensors, their plain
+versions on the CPU).
 """
 from __future__ import annotations
 

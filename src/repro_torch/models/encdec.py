@@ -13,22 +13,26 @@ decode step attends to its caches, the decoder's K/V and the encoder's
 cross K/V computed once at prefill, with the plain ``_sdpa``.  Layers are a
 Python loop; ``forward`` follows the caller's grad mode (the train step
 differentiates it), ``prefill`` and ``decode`` run under
-``torch.inference_mode``.  Caches keep the reference's stacked layout and
-the self-attention cache is updated in place.  With ``cfg.remat`` each
+``torch.inference_mode`` (``torch.no_grad`` on DTensor params).  Caches
+keep the reference's stacked layout and the self-attention cache is
+updated in place.  With ``cfg.remat`` each
 encoder and decoder layer of a forward that builds a graph runs under
 ``torch.utils.checkpoint`` (``lm.layer_runner``), as the reference wraps
-each scanned body in ``jax.checkpoint``.
+each scanned body in ``jax.checkpoint``.  Each encoder and decoder layer
+first pins the residual stream to the launcher's ``cfg.act_shard_spec``
+(``layers.pin_act``), as the reference's bodies do.
 """
 from __future__ import annotations
 
 from typing import Dict, NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from .config import ModelConfig
 from .layers import (
-    KVCache, Params, _proj_heads, attention, init_attn, init_mlp, mlp, normal, rms_norm,
-    sinusoidal_pos,
+    KVCache, Params, _contract, _proj_heads, _reduced, attention, fsdp_gathered, init_attn,
+    init_mlp, mlp, normal, pin_act, rms_norm, serving, sinusoidal_pos,
 )
 from .lm import _finisher, layer_runner
 
@@ -81,6 +85,7 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *,
 
 
 def _enc_layer(lp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    x = pin_act(x, cfg)
     h, _ = attention(lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps), cfg,
                      causal=False, use_rope=False)
     x = x + h
@@ -110,6 +115,7 @@ def _dec_layer(lp, x: torch.Tensor, cfg: ModelConfig, enc: Optional[torch.Tensor
                cross: Optional[KVCache], cache: Optional[KVCache], pos: Optional[int],
                fill: bool):
     """One decoder layer.  Returns (x, the prompt's K/V when ``fill``)."""
+    x = pin_act(x, cfg)
     h, kv = attention(lp["self_attn"], rms_norm(x, lp["ln1"], cfg.norm_eps), cfg,
                       causal=True, cache=cache, pos=pos, collect_kv=fill)
     x = x + h
@@ -146,11 +152,11 @@ def _dec_stack(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
 
 def _logits(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return (x @ params["lm_head"].to(x.dtype)).to(cfg.logit_dtype)
+    return _contract(x, fsdp_gathered(params["lm_head"]), 1).to(cfg.logit_dtype)
 
 
 def _embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return params["embed"][tokens].to(cfg.dtype)
+    return _reduced(F.embedding(tokens, params["embed"])).to(cfg.dtype)
 
 
 def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig) -> torch.Tensor:
@@ -161,29 +167,31 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig) ->
     return _logits(params, x, cfg)
 
 
-@torch.inference_mode()
+@serving
 def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
-            max_dec_len: Optional[int] = None):
+            max_dec_len: Optional[int] = None, self_kv: Optional[KVCache] = None):
     """Encode the frames, compute the cross K/V once and run the decoder
     prompt.  Returns (last-token logits (B, 1, V), ``EncDecCache``).  The
     self-attention cache holds ``max(max_dec_len or cfg.max_dec_len, S_dec)``
     positions in the compute dtype, zero past the prompt, as the reference
-    pads it (``encdec.py:163-166``)."""
+    pads it (``encdec.py:163-166``); ``self_kv``: a zero cache of that
+    layout to fill instead (the dry-run passes it sharded)."""
     _check(cfg)
     enc = _encode(params, batch["frames"], cfg)
     cross = _cross_kv(params, enc)
     tokens = batch["tokens"]
     B, S_dec = tokens.shape
-    shape = (cfg.n_layers, B, max(max_dec_len or cfg.max_dec_len, S_dec), cfg.n_kv_heads,
-             cfg.head_dim)
-    self_kv = KVCache(torch.zeros(shape, dtype=cfg.dtype, device=tokens.device),
-                      torch.zeros(shape, dtype=cfg.dtype, device=tokens.device))
+    if self_kv is None:
+        shape = (cfg.n_layers, B, max(max_dec_len or cfg.max_dec_len, S_dec), cfg.n_kv_heads,
+                 cfg.head_dim)
+        self_kv = KVCache(torch.zeros(shape, dtype=cfg.dtype, device=tokens.device),
+                          torch.zeros(shape, dtype=cfg.dtype, device=tokens.device))
     x = _dec_stack(params, _embed(params, tokens, cfg), cfg, cross=cross, self_kv=self_kv,
                    fill=True)
     return _logits(params, x[:, -1:], cfg), EncDecCache(self_kv, cross)
 
 
-@torch.inference_mode()
+@serving
 def decode(params: Params, cache: EncDecCache, token: torch.Tensor, pos: int,
            cfg: ModelConfig):
     """One decoder step.  token (B, 1) written at ``pos``.  Returns (logits

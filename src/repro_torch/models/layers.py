@@ -23,22 +23,35 @@ with ``cfg.grad_shard``, ``models/pmm.py``'s matmul (its gradient lands in
 the weight's sharded layout), else one matmul over the contracted dims.
 Not ported: ``_sdpa_q_chunked``, which no path without a cache reaches
 here.
+
+On DTensor operands (the dry-run's sharded cells, ``launch/dryrun.py``) the
+kernel ops, which DTensor has no sharding strategy for, and ``_sdpa``
+against a cache, whose grouped-head reshape DTensor cannot split where the
+KV heads do not divide the mesh axis, run through ``local_kernel``:
+``torch.distributed.tensor.experimental.local_map`` on each device's
+shard, each operand redistributed first to a layout they can run locally
+(sharded over batch rows and heads only).
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..kernels.flash_attention.ops import flash_attention
 from .config import ModelConfig
+from .pmm import _constrain
 from .pmm import matmul as _pmm
 
 __all__ = [
     "Params", "normal", "rms_norm", "layer_norm", "sinusoidal_pos", "rotary", "apply_rope",
     "KVCache", "init_attn", "attention", "init_mlp", "mlp", "init_dense_layer", "dense_layer",
+    "pin_act", "local_kernel", "serving", "whole_dim", "replicated_where", "grad_like_forward",
+    "fsdp_gathered",
 ]
 
 
@@ -83,8 +96,53 @@ def normal(gen: torch.Generator, shape, cfg: ModelConfig, scale: float,
                        dtype=dtype or cfg.param_dtype).mul_(scale)
 
 
+def _whole(placements) -> list:
+    return [Replicate() if p.is_partial() else p for p in placements]
+
+
+class _Reduce(torch.autograd.Function):
+    """A DTensor's pending sums reduced; its gradient, whole too, is passed
+    back as it is (a masked partial sum, the vocab-sharded embedding's,
+    takes no gradient redistributed back to its own kind)."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.redistribute(t.device_mesh, _whole(t.placements))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(g.device_mesh, _whole(g.placements))
+
+
+def replicated_where(t: torch.Tensor, drop) -> torch.Tensor:
+    """A DTensor with each placement that ``drop(mesh_dim, placement)``
+    picks, and each pending sum (``Partial``), replicated; a plain tensor
+    as it is."""
+    if not isinstance(t, DTensor):
+        return t
+    places = [Replicate() if p.is_partial() or drop(i, p) else p
+              for i, p in enumerate(t.placements)]
+    return t if places == list(t.placements) else t.redistribute(t.device_mesh, places)
+
+
+def whole_dim(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """``t`` gathered along ``dim`` once, before it is cut into pieces along
+    ``dim``: DTensor gathers the whole tensor again for each piece cut from
+    a sharded dim."""
+    dim %= t.dim()
+    return replicated_where(t, lambda i, p: isinstance(p, Shard) and p.dim == dim)
+
+
+def _reduced(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor with its pending sums (``Partial``) reduced, as a
+    normalisation needs its input whole; a plain tensor as it is."""
+    if isinstance(t, DTensor) and any(p.is_partial() for p in t.placements):
+        return _Reduce.apply(t)
+    return t
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    x32 = x.float()
+    x32 = _reduced(x).float()
     var = (x32 * x32).mean(dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * (1.0 + scale.float())).to(x.dtype)
@@ -92,7 +150,7 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.T
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
-    x32 = x.float()
+    x32 = _reduced(x).float()
     mu = x32.mean(dim=-1, keepdim=True)
     var = x32.var(dim=-1, unbiased=False, keepdim=True)
     y = (x32 - mu) * torch.rsqrt(var + eps)
@@ -162,11 +220,68 @@ def _sanitize_dw_spec(cfg: ModelConfig, w: torch.Tensor, dw_spec) -> tuple:
     return tuple(out)
 
 
+def _mergeable(t: torch.Tensor, groups) -> torch.Tensor:
+    """``t`` ready to have each group of ``groups`` consecutive dims merged
+    by a reshape: a DTensor sharded on a dim inside a group (not its first)
+    is replicated there, since DTensor's product of such a merge, a strided
+    shard, has no matmul strategy."""
+    inner, start = set(), 0
+    for g in groups:
+        inner.update(range(start + 1, start + g))
+        start += g
+    return replicated_where(t, lambda i, p: isinstance(p, Shard) and p.dim in inner)
+
+
+def fsdp_gathered(w: torch.Tensor) -> torch.Tensor:
+    """A (D, V) output weight with its D rows gathered (the FSDP gather,
+    which ``pmm`` makes of the other weights) and its columns kept sharded,
+    so that the product's output is sharded over the vocabulary."""
+    return replicated_where(w, lambda i, p: isinstance(p, Shard) and p.dim == 0)
+
+
+def _splittable(t: torch.Tensor, first: int) -> torch.Tensor:
+    """``t`` ready to have its last dim split into dims the first of which is
+    ``first`` long: a DTensor sharded on it over a mesh dim that does not
+    divide ``first`` (heads that do not divide the model axis) is
+    replicated there."""
+    last = t.dim() - 1
+    return replicated_where(t, lambda i, p: (isinstance(p, Shard) and p.dim == last
+                                             and first % t.device_mesh.size(i)))
+
+
+class _GradLikeForward(torch.autograd.Function):
+    """The identity, whose backward gives a DTensor gradient the placements
+    the forward value had (a pending sum reduced): for a value a reshape
+    made, whose backward reshapes the gradient back."""
+
+    @staticmethod
+    def forward(ctx, t):
+        ctx.placements = _whole(t.placements)
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(g.device_mesh, ctx.placements)
+
+
+def grad_like_forward(t: torch.Tensor) -> torch.Tensor:
+    """``t``; in the backward its DTensor gradient takes ``t``'s placements
+    (``_GradLikeForward``).  A plain tensor, or one that needs no
+    gradient, is returned as it is."""
+    if isinstance(t, DTensor) and t.requires_grad:
+        return _GradLikeForward.apply(t)
+    return t
+
+
 def _contract(x: torch.Tensor, w: torch.Tensor, n: int) -> torch.Tensor:
     """x's trailing ``n`` dims against w's leading ``n``, as one matmul."""
     lead = x.shape[:x.dim() - n]
     k = w.shape[:n].numel()
-    return (x.reshape(*lead, k) @ w.to(x.dtype).reshape(k, -1)).reshape(*lead, *w.shape[n:])
+    x = _mergeable(x, (len(lead), n))
+    w = _mergeable(w.to(x.dtype), (n, w.dim() - n))
+    out = _splittable(x.reshape(*lead, k) @ w.reshape(k, -1), w.shape[n])
+    # the gradient, which the product's backward merges, in the output's layout
+    return grad_like_forward(out.reshape(*lead, *w.shape[n:]))
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor, subscripts: str, cfg: ModelConfig,
@@ -204,6 +319,140 @@ def _sdpa(q, k, v, *, causal: bool, q_offset: int = 0) -> torch.Tensor:
     w = torch.softmax(logits, dim=-1).to(v.dtype)
     o = torch.einsum("bkgqs,bskh->bqkgh", w, v)
     return o.reshape(B, Sq, H, hd)
+
+
+def serving(fn):
+    """Run ``fn`` (prefill, decode) under ``torch.inference_mode``, or under
+    ``torch.no_grad`` when its params are DTensors, whose views cannot be
+    made of inference tensors."""
+    @functools.wraps(fn)
+    def run(params, *args, **kwargs):
+        sharded = isinstance(next(params.parameters()), DTensor)
+        with torch.no_grad() if sharded else torch.inference_mode():
+            return fn(params, *args, **kwargs)
+    return run
+
+
+def pin_act(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The residual stream pinned to the launcher's ``cfg.act_shard_spec``
+    (the reference's ``with_sharding_constraint`` at each layer body): a
+    DTensor is redistributed to it, a plain tensor is left as it is."""
+    return _constrain(x, tuple(cfg.act_shard_spec)) if cfg.act_shard_spec else x
+
+
+def _kernel_layout(args, roles, mesh):
+    """Per operand, the placements ``local_kernel`` runs it with, and the
+    mesh dim over which the GQA KV operands are sliced on each device (or
+    None).  ``roles`` maps each operand's dims: ``"batch"`` and ``"head"``
+    may be sharded (a kernel is local per batch row and per head);
+    ``"group"`` follows the heads (shared where it has one group); ``"kv"``
+    marks KV heads, which follow the query heads, or, where they do not
+    divide the mesh dim but each device's query heads lie in one group,
+    stay whole and are sliced to that group on each device.  Each mesh dim
+    keeps the first operand's batch or head sharding where that works; the
+    ``model`` mesh dim, which the sharding rules give the heads, shards the
+    heads where the first operand is replicated over it and that works
+    (each device then runs its share of the heads, a slice of what it
+    holds); a mesh dim is replicated otherwise."""
+    out = [[] for _ in args]
+    lead = args[0].placements
+    n_heads = args[0].shape[roles[0]["head"]] if "head" in roles[0] else 0
+    kv_slice = None
+    for i in range(mesh.ndim):
+        n, p = mesh.size(i), lead[i]
+        role = next((r for r, d in roles[0].items() if isinstance(p, Shard) and p.dim == d), None)
+        if p.is_replicate() and n_heads and (mesh.mesh_dim_names or ())[i:i + 1] == ("model",):
+            role = "head"
+        place = [Replicate()] * len(args)
+        sliced = False
+        if role in ("batch", "head"):
+            for j, (a, r) in enumerate(zip(args, roles)):
+                d = r.get(role, r.get("group", r.get("kv")) if role == "head" else r.get("kv"))
+                if d is None:
+                    continue
+                if a.shape[d] % n == 0:
+                    place[j] = Shard(d)
+                elif role == "head" and "group" in r and a.shape[d] == 1:
+                    pass
+                elif (role == "head" and "kv" in r and n % a.shape[d] == 0
+                      and n_heads % n == 0 and kv_slice is None):
+                    sliced = True
+                else:
+                    place = [Replicate()] * len(args)
+                    sliced = False
+                    break
+        if sliced:
+            kv_slice = i
+        for j in range(len(args)):
+            out[j].append(place[j])
+    return [tuple(p) for p in out], kv_slice
+
+
+def local_kernel(fn, args, roles, out_roles):
+    """``fn(*args)`` on each device's shards when ``args[0]`` is a DTensor
+    (``local_map``; plain operands are taken as replicated), else ``fn(*args)``.
+    ``roles`` / ``out_roles``: per operand and output, its batch, head,
+    group and KV-head dims (``_kernel_layout``).  KV operands sliced to a
+    device's group get a partial-sum gradient over that mesh dim."""
+    if not isinstance(args[0], DTensor):
+        return fn(*args)
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+    mesh = args[0].device_mesh
+    args = [a if isinstance(a, DTensor) else
+            DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim, run_check=False)
+            for a in args]
+    ins, kv_slice = _kernel_layout(args, roles, mesh)
+    by_dim = {d: role for role, d in roles[0].items()}
+    outs = []
+    for r in out_roles:
+        # an output is sharded as the first operand's dim of the same role is
+        outs.append(tuple(Shard(r[by_dim[p.dim]]) if isinstance(p, Shard) else Replicate()
+                          for p in ins[0]))
+    grads = [list(p) for p in ins]
+    run = fn
+    if kv_slice is not None:
+        # each device's query heads read one KV head: slice it here
+        H, i = args[0].shape[roles[0]["head"]], kv_slice
+        per_dev = H // mesh.size(i)
+        kv = [j for j, r in enumerate(roles) if "kv" in r]
+        for j in kv:
+            grads[j][i] = Partial()
+
+        def run(*local):
+            local = list(local)
+            rank = mesh.get_local_rank(i)
+            for j in kv:
+                d = roles[j]["kv"]
+                g = H // args[j].shape[d]
+                local[j] = local[j].narrow(d, rank * per_dev // g, 1)
+            return fn(*local)
+    return local_map(run, out_placements=tuple(outs), in_placements=tuple(ins),
+                     in_grad_placements=tuple(tuple(g) for g in grads), device_mesh=mesh,
+                     redistribute_inputs=True)(*args)
+
+
+_ATTN_ROLES = ({"batch": 0, "head": 2}, {"batch": 0, "kv": 2}, {"batch": 0, "kv": 2})
+_ATTN_OUT_ROLES = ({"batch": 0, "head": 2},)
+
+
+def _cached_sdpa(q, k, v, causal: bool, pos: int) -> torch.Tensor:
+    """``_sdpa`` against a cache.  On DTensors, a cache sharded over its
+    positions (``cache_specs``' flash-decoding layout) is attended to on
+    DTensor's own strategies where it lies, each device over its
+    positions, with the softmax's reductions across them; the query's
+    heads are first replicated over a mesh dim the KV heads do not divide,
+    whose grouped-head reshape DTensor cannot split.  Any other cache runs
+    through ``local_kernel``, local per batch row and head."""
+    if isinstance(q, DTensor) and not any(isinstance(p, Shard) and p.dim == 1
+                                          for p in k.placements):
+        # a cache sharded over its heads, not its positions: local per head
+        return local_kernel(lambda q_, k_, v_: _sdpa(q_, k_, v_, causal=causal, q_offset=pos),
+                            (q, k, v), _ATTN_ROLES, _ATTN_OUT_ROLES)
+    K = k.shape[2]
+    q = replicated_where(q, lambda i, p: (isinstance(p, Shard) and p.dim == 2
+                                          and K % q.device_mesh.size(i)))
+    return _sdpa(q, k, v, causal=causal, q_offset=pos)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -279,15 +528,17 @@ def attention(p, x: torch.Tensor, cfg: ModelConfig, *, causal: bool = True,
     if cache is not None:
         cache.k[:, pos:pos + S] = k
         cache.v[:, pos:pos + S] = v
-        o = _sdpa(q, cache.k[:, :pos + S], cache.v[:, :pos + S], causal=causal, q_offset=pos)
+        o = _cached_sdpa(q, cache.k[:, :pos + S], cache.v[:, :pos + S], causal, pos)
         new_cache = cache
     elif precomputed_kv is not None and pos is not None:
-        o = _sdpa(q, k, v, causal=causal)
+        o = local_kernel(lambda q_, k_, v_: _sdpa(q_, k_, v_, causal=causal), (q, k, v),
+                         _ATTN_ROLES, _ATTN_OUT_ROLES)
     else:
         if causal and k.shape[1] != S:
             raise ValueError(f"attention: a causal call needs as many keys as queries, "
                              f"got {k.shape[1]} keys for {S} queries")
-        o = _FlashAttention.apply(q, k, v, causal)
+        o = local_kernel(lambda q_, k_, v_: _FlashAttention.apply(q_, k_, v_, causal),
+                         (q, k, v), _ATTN_ROLES, _ATTN_OUT_ROLES)
         if collect_kv:
             new_cache = KVCache(k, v)
     out = _proj(o, p["out"], "bshk,hkd->bsd", cfg, ("model", None, "data"))

@@ -8,7 +8,8 @@ ssm layers and the shared attention), runs under ``torch.utils.checkpoint``
 where the reference wraps its scanned body in ``jax.checkpoint``
 (``layer_runner``).  ``forward`` follows the caller's grad mode, as the reference's pure
 function does, so the train step differentiates it; ``prefill`` and
-``decode`` run under ``torch.inference_mode``.  Caches keep the
+``decode`` run under ``torch.inference_mode`` (``torch.no_grad`` on DTensor
+params, ``layers.serving``).  Caches keep the
 reference's stacked layout and are updated in place:
 
   dense, moe : KVCache (L, B, S_max, K, hd)
@@ -20,17 +21,25 @@ reference's stacked layout and are updated in place:
                one KV cache per call of the shared attention block
 
 The encoder-decoder family is ``models/encdec.py``.
+
+With the launcher's ``cfg.act_shard_spec`` set, each layer body (and the
+hybrid group's shared attention) first pins the residual stream to it
+(``layers.pin_act``), where the reference's scanned bodies apply
+``with_sharding_constraint``: a redistribution of DTensor activations, no
+op on plain tensors.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
 from .layers import (
-    KVCache, Params, attention, dense_layer, init_attn, init_dense_layer, normal, rms_norm,
+    KVCache, Params, _contract, _reduced, attention, dense_layer, fsdp_gathered, init_attn,
+    init_dense_layer, normal, pin_act, rms_norm, serving,
 )
 from .moe import init_moe, moe_block
 from .ssm import SSMState, init_ssm_block, init_ssm_state, ssm_block, ssm_block_decode
@@ -110,6 +119,7 @@ def _init_moe_layer(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 def _attn_layer(lp, x: torch.Tensor, cfg: ModelConfig, collect_kv: bool = False, **kw):
     """One pre-norm attention layer of the dense, vlm (MLP) or moe family."""
+    x = pin_act(x, cfg)
     if cfg.family != "moe":
         return dense_layer(lp, x, cfg, collect_kv=collect_kv, **kw)
     h, kv = attention(lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps), cfg,
@@ -137,11 +147,14 @@ def to_compute_dtype_(params: Params, cfg: ModelConfig) -> Params:
 
 def unembed(params: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return (h @ w.to(h.dtype)).to(cfg.logit_dtype)
+    return _contract(h, fsdp_gathered(w), 1).to(cfg.logit_dtype)
 
 
 def _embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return params["embed"][tokens].to(cfg.dtype)
+    """The embedding rows of ``tokens`` (``F.embedding``: the reference's
+    row gather, with DTensor's vocab-sharded strategy, whose masked partial
+    sum is reduced at once: its mask serves one reduction)."""
+    return _reduced(F.embedding(tokens, params["embed"])).to(cfg.dtype)
 
 
 def _inputs(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig) -> torch.Tensor:
@@ -181,6 +194,7 @@ def layer_runner(cfg: ModelConfig, fill: bool):
 
 
 def _ssm_layer(lp, x: torch.Tensor, cfg: ModelConfig):
+    x = pin_act(x, cfg)
     h, st = ssm_block(lp, x, cfg)
     return x + h, st
 
@@ -192,7 +206,7 @@ def _hybrid_group(layers, shared, x: torch.Tensor, cfg: ModelConfig, fill: bool)
     for lp in layers:
         x, st = _ssm_layer(lp, x, cfg)
         states.append(st)
-    x, kv = dense_layer(shared, x, cfg, collect_kv=fill)
+    x, kv = dense_layer(shared, pin_act(x, cfg), cfg, collect_kv=fill)
     return x, states, kv
 
 
@@ -265,24 +279,27 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
     return kv if dense else (states, kv)
 
 
-@torch.inference_mode()
+@serving
 def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
-            max_len: Optional[int] = None):
+            max_len: Optional[int] = None, cache=None):
     """Run the prompt and fill the caches.  Returns (last-token logits
     (B, 1, V), cache).  The prompt is ``total`` = S positions, n_img + S for
     vlm; the K/V cache holds ``max(max_len, total)`` positions in the compute
     dtype, zero past the prompt, as the reference pads it (``lm.py:280-289``);
-    decode continues by writing at pos = total."""
+    decode continues by writing at pos = total.  ``cache``: zero caches of
+    ``init_cache``'s layout to fill instead (the dry-run passes them sharded,
+    where the reference pins the output cache's layout)."""
     _check(cfg)
     x = _inputs(params, batch, cfg)
     B, total = x.shape[:2]
-    cache = init_cache(cfg, B, max(total, max_len or total), device=x.device)
+    if cache is None:
+        cache = init_cache(cfg, B, max(total, max_len or total), device=x.device)
     x = _layers(params, x, cfg, cache)
     x = rms_norm(x[:, -1:, :], params["final_norm"], cfg.norm_eps)
     return unembed(params, x, cfg), cache
 
 
-@torch.inference_mode()
+@serving
 def decode(params: Params, cache, token: torch.Tensor, pos: int, cfg: ModelConfig):
     """One decode step.  token (B, 1); ``pos`` the position it is written at
     (for vlm, counted after the ``n_img`` patch positions).  Returns (logits
@@ -295,11 +312,12 @@ def decode(params: Params, cache, token: torch.Tensor, pos: int, cfg: ModelConfi
         if cfg.family in _KV_FAMILIES:
             x, _ = _attn_layer(lp, x, cfg, cache=KVCache(kvs.k[i], kvs.v[i]), pos=pos)
             continue
+        x = pin_act(x, cfg)
         h, _ = ssm_block_decode(lp, x, cfg, SSMState(states.conv[i], states.h[i]))
         x = x + h
         if cfg.family == "hybrid" and (i + 1) % period == 0:
             g = i // period
-            x, _ = dense_layer(params["shared_attn"], x, cfg,
+            x, _ = dense_layer(params["shared_attn"], pin_act(x, cfg), cfg,
                                cache=KVCache(kvs.k[g], kvs.v[g]), pos=pos)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return unembed(params, x, cfg), cache

@@ -23,9 +23,11 @@ arithmetic, neither of which changes a routing decision:
   runs repeatable.
 
 The expert products go through ``_emm``: ``pmm``'s matmul with grad
-sharding when ``cfg.grad_shard`` and ``cfg.moe_ep_shard`` are set.  Not
-ported: ``_ep``'s expert-parallel sharding constraint on the dispatch
-buffers, which the launcher's dry-run sets.
+sharding when ``cfg.grad_shard`` and ``cfg.moe_ep_shard`` are set.  With
+``cfg.moe_ep_shard`` (set by the dry-run's launcher) ``_ep`` pins the
+dispatch buffers ``xe``, the gated ``h`` and ``ye`` to expert parallelism,
+experts over ``model``, as the reference's ``_ep`` does: a redistribution
+of DTensors, no op on plain tensors.
 
 ``moe_block_dense`` is the one-hot oracle of the tests (the same math when
 nothing is dropped).
@@ -35,9 +37,14 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from .config import ModelConfig
-from .layers import _act, _sanitize_dw_spec, normal
+from .layers import (
+    _act, _mergeable, _sanitize_dw_spec, _whole, grad_like_forward, local_kernel, normal,
+    replicated_where,
+)
+from .pmm import _constrain
 from .pmm import matmul as _pmm
 
 __all__ = ["init_moe", "moe_block", "moe_block_dense", "route_topk", "MOE_CHUNK_TOKENS"]
@@ -99,8 +106,11 @@ def moe_block(p, x: torch.Tensor, cfg: ModelConfig,
     B, S, D = x.shape
     chunk = MOE_CHUNK_TOKENS
     if B * S > chunk and (B * S) % chunk == 0:
-        xc = x.reshape((B * S) // chunk, 1, chunk, D)
-        return torch.cat([_moe_block_inner(p, c, cfg, capacity) for c in xc]).reshape(B, S, D)
+        # over DTensors the tokens are replicated first: DTensor cannot cut
+        # a batch- or sequence-sharded token axis into chunks
+        xc = _replicated(x).reshape((B * S) // chunk, 1, chunk, D)
+        return grad_like_forward(
+            torch.cat([_moe_block_inner(p, c, cfg, capacity) for c in xc]).reshape(B, S, D))
     return _moe_block_inner(p, x, cfg, capacity)
 
 
@@ -147,34 +157,65 @@ def _emm(a: torch.Tensor, w: torch.Tensor, subs: str, dw_spec, cfg: ModelConfig)
     return torch.bmm(a, w.to(a.dtype))
 
 
+def _replicated(t: torch.Tensor) -> torch.Tensor:
+    """``t`` replicated on every mesh dim (over DTensors)."""
+    return replicated_where(t, lambda i, p: True)
+
+
+def _rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``t``'s rows at ``idx`` (flattened).  Over DTensors each device
+    gathers from the whole replicated ``t`` (``index_select``'s backward,
+    ``index_add``, has no DTensor strategy)."""
+    return local_kernel(lambda a, i: a.index_select(0, i.reshape(-1)), (t, idx), [{}, {}], [{}])
+
+
+def _ep(t: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Experts over ``model`` (the reference's ``_ep``, ``moe.py:120-126``)."""
+    if not cfg.moe_ep_shard:
+        return t
+    return _constrain(t, ("model",) + (None,) * (t.dim() - 1))
+
+
 def _moe_block_inner(p, x: torch.Tensor, cfg: ModelConfig,
                      capacity: Optional[int] = None) -> torch.Tensor:
     B, S, D = x.shape
     T = B * S
     E, k = cfg.n_experts, cfg.moe_top_k
-    xt = x.reshape(T, D)
+    # a sequence-sharded residual (Megatron-SP) is gathered over the
+    # sequence first: DTensor cannot fold it into the token axis
+    xt = grad_like_forward(_mergeable(x, (2, 1)).reshape(T, D))
     router_logits = xt.float() @ p["router"].float()                  # (T, E) float32
     C = _capacity(T, k, E, cfg.capacity_factor) if capacity is None else capacity
-    _, _, slot_tok, slot_w, slot_of = dispatch(router_logits, k, C)
+    # the sort-based dispatch has no DTensor strategy: over DTensors every
+    # device computes the global slot tables from the replicated logits
+    _, _, slot_tok, slot_w, slot_of = local_kernel(lambda r: dispatch(r, k, C),
+                                                   (router_logits,), [{}], [{}] * 5)
 
     # gather each expert's tokens; an empty slot reads the zero row T
     xt_pad = torch.cat([xt, xt.new_zeros(1, D)])
-    xe = xt_pad.index_select(0, slot_tok.reshape(-1)).reshape(E, C, D)
+    xe = _ep(grad_like_forward(_rows(xt_pad, slot_tok).reshape(E, C, D)), cfg)
     gate = _emm(xe, p["e_gate"], "ecd,edf->ecf", ("model", "data", None), cfg)
     up = _emm(xe, p["e_up"], "ecd,edf->ecf", ("model", "data", None), cfg)
-    ye = _emm(_act(gate, cfg.act) * up, p["e_down"], "ecf,efd->ecd", ("model", None, "data"),
-              cfg)                                                         # (E, C, D)
+    h = _ep(_act(gate, cfg.act) * up, cfg)
+    ye = _ep(_emm(h, p["e_down"], "ecf,efd->ecd", ("model", None, "data"), cfg),
+             cfg)                                                          # (E, C, D)
 
     # combine: gather each token's k weighted outputs, add strongest first
-    yw = (ye * slot_w[..., None].to(ye.dtype)).reshape(E * C, D)
+    # over DTensors the combine reads the replicated expert outputs (as
+    # ``_rows`` would gather them), so they are replicated before they are
+    # flattened: an expert axis that does not divide the mesh cannot be
+    yw = (_replicated(ye) * slot_w[..., None].to(ye.dtype)).reshape(E * C, D)
     yw = torch.cat([yw, yw.new_zeros(1, D)])
-    parts = yw.index_select(0, slot_of.reshape(-1)).reshape(T, k, D)
+    parts = _rows(yw, slot_of).reshape(T, k, D)
     yt = parts[:, 0]
     for j in range(1, k):
         yt = yt + parts[:, j]
     if cfg.n_shared_experts:
         yt = yt + _shared_experts(p["shared"], xt, cfg)
-    return yt.reshape(B, S, D)
+    if isinstance(yt, DTensor):
+        # back to the tokens' layout, which the reshape to (B, S) can split
+        yt = yt.redistribute(yt.device_mesh, _whole(xt.placements))
+    return grad_like_forward(yt.reshape(B, S, D))
 
 
 def moe_block_dense(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -92,8 +92,10 @@ class _ShardedMatmul(torch.autograd.Function):
             return torch.einsum(subscripts, x, w.to(x.dtype))
         a, b, o = _split_subs(subscripts)
         la = _letter_ax(b, meta[0])
-        if la:
+        if la or isinstance(x, DTensor):
             # gather the (small) activation over seq/model for the TP matmul
+            # (over DTensors also without a TP dim: DTensor's einsum cannot
+            # fold a sequence-sharded activation into its batch)
             x = _constrain(x, _tp_spec(a, x.shape, la, meta[1]))
         out = torch.einsum(subscripts, x, _unshard_data(w, meta).to(x.dtype))
         return _constrain_act(out, o, la, meta)
@@ -104,15 +106,19 @@ class _ShardedMatmul(torch.autograd.Function):
         meta = ctx.meta
         a, b, out = _split_subs(ctx.subscripts)
         g = g.to(x.dtype)
+        la = _letter_ax(b, meta[0]) if meta is not None else {}
+        if meta is not None:
+            # g in its TP spec (the reference pins a TP output's gradient so;
+            # a residual output's, pinned to the act spec there, is gathered
+            # over the sequence too: DTensor's einsum cannot fold a
+            # sequence-sharded operand into its batch)
+            g = _constrain(g, _tp_spec(out, g.shape, la, meta[1]))
         # dx: contract g with the (storage-dtype, FSDP-gathered) weight
         dx = torch.einsum(f"{out},{b}->{a}", g, _unshard_data(w, meta).to(g.dtype))
         if meta is not None:
-            la = _letter_ax(b, meta[0])
             dx = _constrain_act(dx, a, la, meta)
-            if la:
-                g = _constrain_act(g, out, la, meta)
-                # x fully gathered on non-TP dims for the dW contraction
-                x = _constrain(x, _tp_spec(a, x.shape, la, meta[1]))
+            # x fully gathered on non-TP dims for the dW contraction
+            x = _constrain(x, _tp_spec(a, x.shape, la, meta[1]))
         # dW: local tile already TP-sharded; cast to the weight's dtype; lands
         # in the weight's layout
         dw = torch.einsum(f"{a},{out}->{b}", x, g).to(w.dtype)

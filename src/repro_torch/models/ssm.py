@@ -26,7 +26,7 @@ import torch.nn.functional as F
 
 from ..kernels.ssd_scan.ops import ssd_scan
 from .config import ModelConfig
-from .layers import normal, rms_norm
+from .layers import _contract, grad_like_forward, local_kernel, normal, rms_norm, whole_dim
 
 __all__ = ["SSMState", "init_ssm_block", "init_ssm_state", "ssm_block", "ssm_block_decode"]
 
@@ -70,6 +70,7 @@ def init_ssm_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
 
 def _split_proj(zxbcdt: torch.Tensor, cfg: ModelConfig):
     d_inner, G, N = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state
+    zxbcdt = whole_dim(zxbcdt, -1)
     z = zxbcdt[..., :d_inner]
     xBC = zxbcdt[..., d_inner:2 * d_inner + 2 * G * N]
     dt = zxbcdt[..., 2 * d_inner + 2 * G * N:]
@@ -177,29 +178,42 @@ class _SSDScan(torch.autograd.Function):
         return (*(next(grads) if n else None for n in needs), None)
 
 
+# the scan is local per batch row and per head (a head reads its group)
+_SCAN_ROLES = ({"batch": 0, "head": 2}, {"batch": 0, "head": 2}, {"head": 0},
+               {"batch": 0, "group": 2}, {"batch": 0, "group": 2})
+_SCAN_OUT_ROLES = ({"batch": 0, "head": 2}, {"batch": 0, "head": 1})
+
+
 def ssm_block(p, x: torch.Tensor, cfg: ModelConfig):
     """Mamba-2 block from a zero state (pre-norm, residual outside).
     x (B, S, D) -> (out (B, S, D), the state after the sequence)."""
     B_, S, D = x.shape
     h = rms_norm(x, p["norm"], cfg.norm_eps)
-    zxbcdt = h @ p["in_proj"].to(h.dtype)
+    zxbcdt = _contract(h, p["in_proj"], 1)
     z, conv_in, dt = _split_proj(zxbcdt, cfg)
-    xBC = _causal_conv(conv_in, p["conv_w"].to(conv_in.dtype), p["conv_b"].to(conv_in.dtype))
+    # the conv runs on each device's batch rows (over DTensors, whose padding
+    # along a dim has no strategy in every PyTorch release)
+    xBC = local_kernel(_causal_conv, (conv_in, p["conv_w"].to(conv_in.dtype),
+                                      p["conv_b"].to(conv_in.dtype)),
+                       ({"batch": 0}, {}, {}), ({"batch": 0},))
 
     d_inner, H, P = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
     G, N = cfg.ssm_groups, cfg.ssm_state
     # views into the conv output; the kernel reads them through their strides
+    xBC = whole_dim(xBC, -1)
     xs = xBC[..., :d_inner].reshape(B_, S, H, P)
     Bm = xBC[..., d_inner:d_inner + G * N].reshape(B_, S, G, N)
     Cm = xBC[..., d_inner + G * N:].reshape(B_, S, G, N)
     dt = F.softplus(dt.float() + p["dt_bias"].float())
     A = -torch.exp(p["A_log"].float())
 
-    y, h_final = _SSDScan.apply(xs, dt, A, Bm, Cm, cfg)
+    y, h_final = local_kernel(lambda *a: _SSDScan.apply(*a, cfg), (xs, dt, A, Bm, Cm),
+                              _SCAN_ROLES, _SCAN_OUT_ROLES)
     y = y + xs * p["D_skip"].to(y.dtype)[None, None, :, None]
-    y = y.reshape(B_, S, d_inner)
+    # its gradient, split back into heads, in the heads' layout
+    y = grad_like_forward(y.reshape(B_, S, d_inner))
     y = rms_norm(y * F.silu(z), p["gated_norm"], cfg.norm_eps)
-    out = y @ p["out_proj"].to(y.dtype)
+    out = _contract(y, p["out_proj"], 1)
 
     K = cfg.ssm_conv
     if S >= K - 1:
@@ -226,14 +240,14 @@ def ssm_block_decode(p, x: torch.Tensor, cfg: ModelConfig, state: SSMState):
     if S != 1:
         raise ValueError(f"ssm_block_decode takes one token, got S={S}")
     h = rms_norm(x, p["norm"], cfg.norm_eps)
-    zxbcdt = h @ p["in_proj"].to(h.dtype)
+    zxbcdt = _contract(h, p["in_proj"], 1)
     z, xBC, dt = _split_proj(zxbcdt, cfg)
 
     # conv over (cached K-1 inputs ++ current)
     window = torch.cat([state.conv, xBC.to(state.conv.dtype)], dim=1)      # (B, K, Cd)
     w = p["conv_w"].to(window.dtype)
     conv_out = torch.einsum("bkc,kc->bc", window, w) + p["conv_b"].to(window.dtype)
-    xBC_t = F.silu(conv_out)[:, None, :].to(x.dtype)                      # (B, 1, Cd)
+    xBC_t = whole_dim(F.silu(conv_out)[:, None, :].to(x.dtype), -1)       # (B, 1, Cd)
 
     d_inner, H, P = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
     G, N = cfg.ssm_groups, cfg.ssm_state
@@ -246,11 +260,13 @@ def ssm_block_decode(p, x: torch.Tensor, cfg: ModelConfig, state: SSMState):
 
     u = xs.float() * dt1[..., None]                                       # (B, H, P)
     h_new = state.h * a[..., None, None] + u[..., :, None] * Bh.float()[:, :, None, :]
-    y = torch.einsum("bhpn,bhn->bhp", h_new, Ch.float()).to(x.dtype)
+    y = local_kernel(lambda h_, c_: torch.einsum("bhpn,bhn->bhp", h_, c_), (h_new, Ch.float()),
+                     ({"batch": 0, "head": 1}, {"batch": 0, "head": 1}),
+                     ({"batch": 0, "head": 1},)).to(x.dtype)
     y = y + xs * p["D_skip"].to(y.dtype)[None, :, None]
     y = y.reshape(B_, 1, d_inner)
     y = rms_norm(y * F.silu(z), p["gated_norm"], cfg.norm_eps)
-    out = y @ p["out_proj"].to(y.dtype)
+    out = _contract(y, p["out_proj"], 1)
     state.conv.copy_(window[:, 1:, :])
     state.h.copy_(h_new)
     return out, state

@@ -36,7 +36,8 @@ def test_port_imports_neither_jax_nor_reference():
         "          'service.transport', 'distributed.checkpoint', 'distributed.fault',\n"
         "          'launch.serve_tabular', 'train.optimizer', 'train.train_step',\n"
         "          'data.pipeline', 'launch.train', 'launch.mesh', 'distributed.sharding',\n"
-        "          'distributed.compression', 'models.pmm'):\n"
+        "          'distributed.compression', 'models.pmm', 'configs.base',\n"
+        "          'launch.costs', 'launch.dryrun'):\n"
         "    assert 'repro_torch.' + m in names, m\n"
         "assert not bad, bad\n"
         "import torch.distributed as dist\n"
