@@ -219,10 +219,32 @@ Phases, in order; any failure exits non-zero and prints no result:
    printed.  Then zamba2-2.7b train_4k traced on the (16, 16) production
    mesh over a fake process group, in a subprocess.
 
+18. The entry points of the JAX package's ``examples/`` through their port
+   modules (``launch/quickstart.py``, ``compare.py``, ``automl_tabular.py``'s
+   ``run_dataset``, the four gates, ``serve_lm.py``, ``train_lm.py``).  (a)
+   The quickstart at its defaults (D3 at scale 0.5, 10 trials, batched,
+   Gen-DST), then with the loop backend and with ``ig_km`` at the CI's
+   scale 0.1 and 4 trials.  (b) ``compare.run_dataset`` at the paper
+   datasets' full size: D6 (17,415 rows x 8) with all nine methods and D1
+   (129,880 x 22) with SubStrat and SubStrat-NF; for each, one untimed call
+   at scale 0.1, then two timed calls back to back between two machine
+   probes, printing per method its seconds, time-reduction, test accuracy,
+   relative accuracy, phase seconds and B1/B2 launches.  Every accuracy
+   must be finite in [0, 1], each Gen-DST method's DST fitness within 1e-6
+   of a plain recomputation, B1 and B2 launched in SubStrat and
+   SubStrat-NF and neither in Full-AutoML.  (c) The four gates return 0:
+   warm start, metrics (B1/B2 launches in the exposition), recompile budget
+   (no kernel built in the steady state), and chaos parity between
+   ``serve_tabular --json`` in process and with two workers, worker 0
+   killed.  (d) ``serve_lm`` (qwen3-8b's smoke config; B3 launches) and
+   ``train_lm --steps 2`` (mamba2-130m's; B4 launches) in a temporary
+   working directory.
+
 Then it prints the ``{"kernels": [...]}`` line (B3's entry also carries its
 times at the other prefill shapes and its launches per prefill of each
 served model; every entry its launches in the training run, per training
-step and per ``train_4k`` step, and in each phase-17 cell), each phase's
+step and per ``train_4k`` step, in each phase-17 cell and in each run of
+phase 18), each phase's
 seconds, the ``nvidia-smi`` line and, last, ``{"ok": true, "device":
 {...}}``.  Imports nothing of JAX.
 """
@@ -271,6 +293,20 @@ try:
 except RuntimeError:
     print("unusable")
 """
+
+
+def plain_fitness(torch, coded, row_idx, cols) -> float:
+    """-|H(d) - H(D)| of a subset of the factorized table ``coded``,
+    recomputed with the plain entropy: rows ``row_idx``, columns ``cols``
+    (indices or a boolean mask) with the target column added."""
+    from repro_torch.core.measures import full_column_entropy, subset_entropy
+    B, dev = coded.max_bins, coded.codes.device
+    mask = torch.zeros(coded.codes.shape[1], dtype=torch.bool, device=dev)
+    mask[torch.as_tensor(cols, device=dev)] = True
+    mask[coded.target_col] = True
+    rows = torch.as_tensor(row_idx, device=dev)
+    return -abs(subset_entropy(coded.codes, rows, mask, B).item()
+                - full_column_entropy(coded.codes, B).mean().item())
 
 
 def phase_seconds(n: int, t0: float) -> float:
@@ -960,7 +996,7 @@ def phase11_strategies(torch, dev, K, coded, X_tr, y_tr, X_te, y_te) -> None:
     import numpy as np
     from repro_torch.core import baselines as BL
     from repro_torch.core.gen_dst import GenDSTConfig, TorchDraws, gen_dst, gen_dst_batch
-    from repro_torch.core.measures import factorize, full_column_entropy, subset_entropy
+    from repro_torch.core.measures import factorize
     from repro_torch.core.plan import execute, plan
     from repro_torch.core.strategies import (
         asp_proxy_dst, available_strategies, get_strategy, run_strategy,
@@ -1000,15 +1036,6 @@ def phase11_strategies(torch, dev, K, coded, X_tr, y_tr, X_te, y_te) -> None:
               f" (fitness {res['card'][2]:.7f}, difference {err:.2e})")
 
     # (b) D1 at full scale, the reference's default options
-    N, M = coded.codes.shape
-    B = coded.max_bins
-    f_ref = full_column_entropy(coded.codes, B).mean().item()
-
-    def plain_fitness(row_idx, col_mask):
-        rows_t = torch.as_tensor(row_idx, device=dev)
-        mask_t = torch.as_tensor(col_mask, device=dev)
-        return -abs(subset_entropy(coded.codes, rows_t, mask_t, B).item() - f_ref)
-
     table = []
     for name in NEW_STRATEGIES:
         fn = get_strategy(name).fn
@@ -1023,7 +1050,7 @@ def phase11_strategies(torch, dev, K, coded, X_tr, y_tr, X_te, y_te) -> None:
         sub = run_strategy(name, make_generator(0, dev), coded, None, None)
         warm_s = time.perf_counter() - t0
         launches = K.launch_counts()
-        f_plain = plain_fitness(sub.row_idx, sub.col_mask)
+        f_plain = plain_fitness(torch, coded, sub.row_idx, sub.col_mask)
         if not (math.isfinite(sub.fitness) and abs(sub.fitness - f_plain) <= FIT_TOL):
             fail(f"{name} at D1: fitness {sub.fitness} against its plain recomputation {f_plain}")
         if name == "mc" and not (launches["masked_histogram"] > 0
@@ -1057,10 +1084,7 @@ def phase11_strategies(torch, dev, K, coded, X_tr, y_tr, X_te, y_te) -> None:
         if not (acc is not None and math.isfinite(acc) and 0.0 <= acc <= 1.0):
             fail(f"execute(plan({name!r})): test accuracy {acc} is not a finite number in [0, 1]")
         if name != "random":
-            mask = np.zeros(M, bool)
-            mask[r.col_idx] = True
-            mask[coded.target_col] = True
-            f_plain = plain_fitness(r.row_idx, mask)
+            f_plain = plain_fitness(torch, coded, r.row_idx, r.col_idx)
             if not abs(r.dst_fitness - f_plain) <= FIT_TOL:
                 fail(f"execute(plan({name!r})): DST fitness {r.dst_fitness} against {f_plain}")
         print(f"execute(plan({name!r})) on D1: {wall:.4f} s; " + ", ".join(
@@ -1173,7 +1197,7 @@ def phase12_service(torch, dev, K, tables, pl) -> None:
     import warnings
     import numpy as np
     from repro_torch.core.gen_dst import GenDSTConfig
-    from repro_torch.core.measures import factorize, full_column_entropy, subset_entropy
+    from repro_torch.core.measures import factorize
     from repro_torch.core.plan import execute
     from repro_torch.obs import torchprof
     from repro_torch.service import Scheduler, SubStratServer, dataset_fingerprint
@@ -1261,17 +1285,12 @@ def phase12_service(torch, dev, K, tables, pl) -> None:
     for j, (X, y, _xt, _yt) in enumerate(jobs):
         key = id(X)
         if key not in coded:
-            c = factorize(X, y, device=dev)
-            coded[key] = (c, full_column_entropy(c.codes, c.max_bins).mean().item())
-        c, f_ref = coded[key]
+            coded[key] = factorize(X, y, device=dev)
+        c = coded[key]
         # the job hashed its host codes; the table coded on the card hashes the same
         if dataset_fingerprint(c) != server.scheduler.jobs[ids[j]].fingerprint:
             fail(f"service job {ids[j]}: the card-coded table's fingerprint differs")
-        mask = torch.zeros(c.num_cols, dtype=torch.bool, device=dev)
-        mask[torch.as_tensor(results[j].col_idx, device=dev)] = True
-        mask[c.target_col] = True
-        rows = torch.as_tensor(results[j].row_idx, device=dev)
-        f_plain = -abs(subset_entropy(c.codes, rows, mask, c.max_bins).item() - f_ref)
+        f_plain = plain_fitness(torch, c, results[j].row_idx, results[j].col_idx)
         if not abs(results[j].dst_fitness - f_plain) <= FIT_TOL:
             fail(f"service job {ids[j]}: DST fitness {results[j].dst_fitness} against its plain "
                  f"recomputation {f_plain}")
@@ -2792,6 +2811,189 @@ def phase17_dryrun(torch, dev, K) -> dict:
     return launches
 
 
+# phase 18's comparisons: dataset -> the methods run (None: all nine)
+COMPARE_RUNS = (("D6", None), ("D1", ["SubStrat", "SubStrat-NF"]))
+# the untimed call's scale: D6 keeps 2,786 training rows there, above the
+# 2,048 at which an AutoML pass multiplies trial by trial
+# (automl/models.STACKED_MATMUL_MAX_ROWS), so the warm-up runs the path that
+# the full-size Full-AutoML takes
+WARM_SCALE = 0.2
+
+
+def _finite_acc(acc) -> bool:
+    return acc is not None and math.isfinite(acc) and 0.0 <= acc <= 1.0
+
+
+def phase18_examples(torch, dev, K) -> dict:
+    """The entry points of ``examples/`` through their port modules, on the
+    card.  (a) ``launch.quickstart`` at its defaults, then with ``--backend
+    loop`` and with ``--strategy ig_km`` at ``--scale 0.1 --trials 4``.  (b)
+    ``launch.compare.run_dataset`` at full size for each of
+    ``COMPARE_RUNS``: one untimed call at ``WARM_SCALE``, then two timed calls
+    back to back between two machine probes; per call and method its
+    seconds, time-reduction, test accuracy, relative accuracy, phase seconds
+    and B1/B2 launches.  Fails unless every accuracy is finite in [0, 1],
+    each Gen-DST method's DST fitness is within ``FIT_TOL`` of a plain
+    recomputation, B1 and B2 launch in SubStrat and SubStrat-NF and neither
+    in Full-AutoML.  (c) The four gates, each returning 0: the warm-start,
+    metrics and recompile-budget gates, and ``serve_tabular --json`` in
+    process and with two workers and worker 0 killed, diffed by
+    ``check_chaos_parity``.  (d) ``launch.serve_lm`` (qwen3-8b's smoke
+    config; B3 must launch) and ``launch.train_lm --steps 2`` at both its
+    presets (mamba2-130m's smoke config and its published config; B4 must
+    launch, the parameters stay finite) in a temporary working directory.
+    Returns each run's launches per kernel, zeroed before the run and read
+    after it."""
+    import collections
+    import os
+    import tempfile
+    from repro_torch.core.measures import factorize
+    from repro_torch.data.tabular import PAPER_DATASETS, make_dataset, train_test_split
+    from repro_torch.launch import (
+        check_chaos_parity, check_metrics, check_recompile_budget, check_warm_start, compare,
+        quickstart, serve_lm, serve_tabular, train_lm,
+    )
+
+    t_phase = time.perf_counter()
+    launches = {}
+
+    def counted(label, fn):
+        K.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        launches[label] = K.launch_counts()
+        return out
+
+    # (a) the paper's headline comparison on D3
+    for label, argv in (("quickstart", []),
+                        ("quickstart --backend loop",
+                         ["--backend", "loop", "--scale", "0.1", "--trials", "4"]),
+                        ("quickstart --strategy ig_km",
+                         ["--strategy", "ig_km", "--scale", "0.1", "--trials", "4"])):
+        print(f"--- {label}")
+        q = counted(label, lambda: quickstart.main(argv))
+        if not (_finite_acc(q["full"].test_acc) and _finite_acc(q["substrat"].final.test_acc)):
+            fail(f"{label}: test accuracy {q['full'].test_acc} / "
+                 f"{q['substrat'].final.test_acc} not finite in [0, 1]")
+        print(f"  launches {launches[label]}")
+
+    # (b) the Table-4 comparison at the paper datasets' full size
+    for name, methods in COMPARE_RUNS:
+        spec = PAPER_DATASETS[name]
+        X, y = make_dataset(spec, scale=1.0)
+        Xtr, ytr, _, _ = train_test_split(X, y, 0.2, seed=0)
+        coded = factorize(Xtr, ytr, device=dev)
+        t0 = time.perf_counter()
+        compare.run_dataset(spec, scale=WARM_SCALE, methods=methods, device=dev)
+        print(f"compare {name}: untimed call at scale {WARM_SCALE} in "
+              f"{time.perf_counter() - t0:.1f} s")
+        machine_probe(torch)
+        for call in (1, 2):
+            label = f"compare {name} call {call}"
+            t0 = time.perf_counter()
+            full, results = counted(label, lambda: compare.run_dataset(
+                spec, scale=1.0, methods=methods, device=dev))
+            print(f"{label} ({len(ytr)} train rows, {time.perf_counter() - t0:.1f} s with "
+                  f"warm-ups): method, time_s, time_reduction, test_acc, relative_accuracy, "
+                  f"B1/B2 launches, winner family, phase (or rung) seconds  [{smi_line()}]")
+            for r in [full] + results:
+                b12 = [r.launches[k] for k in K.GEN_DST_KERNELS]
+                if r.method == "Full-AutoML":
+                    family = r.result.spec.family
+                    times = "rungs " + ", ".join(f"{t:.4f}" for t in r.result.rung_times)
+                else:
+                    family = r.result.final.spec.family
+                    times = ", ".join(f"{k} {v:.4f}" for k, v in r.result.times.items())
+                print(f"  {r.method:12s} {r.time_s:.4f} {r.time_reduction:+.4f} "
+                      f"{r.test_acc:.4f} {r.relative_accuracy:.4f} {b12[0]}/{b12[1]} "
+                      f"{family}  {times}")
+                if not _finite_acc(r.test_acc):
+                    fail(f"{label}: {r.method} test accuracy {r.test_acc}")
+            if any(full.launches[k] for k in K.GEN_DST_KERNELS):
+                fail(f"{label}: B1/B2 launched during Full-AutoML: {full.launches}")
+            for r in results:
+                if r.method in ("SubStrat", "SubStrat-NF"):
+                    if not all(r.launches[k] > 0 for k in K.GEN_DST_KERNELS):
+                        fail(f"{label}: {r.method} launched {r.launches}")
+                    f_plain = plain_fitness(torch, coded, r.result.row_idx, r.result.col_idx)
+                    err = abs(r.result.dst_fitness - f_plain)
+                    sub = r.result.intermediate
+                    families = sorted(collections.Counter(
+                        sp.family for sp, _ in sub.trials).items())
+                    print(f"  {r.method} dst_fitness {r.result.dst_fitness:.8f}, plain "
+                          f"recomputation {f_plain:.8f}; subset {len(r.result.row_idx)} x "
+                          f"{len(r.result.col_idx)}; sub-AutoML rungs "
+                          f"{', '.join(f'{t:.4f}' for t in sub.rung_times)} s over trials "
+                          f"{dict(families)}")
+                    if not err <= FIT_TOL:
+                        fail(f"{label}: {r.method} DST fitness off its plain "
+                             f"recomputation by {err}")
+        machine_probe(torch)
+        del coded
+
+    # (c) the four gates
+    def gate(label, fn):
+        print(f"--- {label}")
+        try:
+            rc = counted(label, fn)
+        except AssertionError as exc:
+            fail(f"{label}: {exc}")
+        if rc not in (0, None):
+            fail(f"{label} returned {rc}")
+
+    gate("check_warm_start", lambda: check_warm_start.main([]))
+    gate("check_metrics", lambda: check_metrics.main(
+        ["--jobs", "2", "--scale", "0.1", "--trials", "4"]))
+    gate("check_recompile_budget", lambda: check_recompile_budget.main(
+        ["--rounds", "2", "--jobs", "2", "--scale", "0.1", "--trials", "4"]))
+    with tempfile.TemporaryDirectory(prefix="repro_torch_chaos_") as tmp:
+        smoke = ["--jobs", "2", "--scale", "0.1", "--trials", "4", "--json"]
+        for label, extra in (("serve_tabular", ["base.json"]),
+                             ("serve_tabular --workers 2 --kill-worker 0",
+                              ["chaos.json", "--workers", "2", "--kill-worker", "0"])):
+            print(f"--- {label}")
+            argv = smoke + [f"{tmp}/{extra[0]}"] + extra[1:]
+            payload = counted(label, lambda: serve_tabular.main(argv))
+            accs = [job["test_acc"] for job in payload["jobs"]]
+            if len(accs) != 2 or not all(_finite_acc(a) for a in accs):
+                fail(f"{label}: test accuracies {accs}")
+        gate("check_chaos_parity", lambda: check_chaos_parity.main(
+            [f"{tmp}/base.json", f"{tmp}/chaos.json"]))
+
+    # (d) the LM wrappers at their own presets
+    print("--- serve_lm")
+    res = counted("serve_lm", lambda: serve_lm.main([]))
+    if not bool(torch.isfinite(res.last_logits).all()) or launches["serve_lm"][
+            "flash_attention"] <= 0:
+        fail(f"serve_lm: launches {launches['serve_lm']}, finite logits "
+             f"{bool(torch.isfinite(res.last_logits).all())}")
+    print(f"  launches {launches['serve_lm']}")
+    cwd = os.getcwd()
+    for label, argv in (("train_lm", ["--steps", "2"]),
+                        ("train_lm --preset full", ["--preset", "full", "--steps", "2"])):
+        print(f"--- {label} --steps 2")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="repro_torch_train_lm_") as tmp:
+            os.chdir(tmp)
+            try:
+                states = counted(label, lambda: train_lm.main(argv))
+            finally:
+                os.chdir(cwd)
+        wall = time.perf_counter() - t0
+        finite = all(bool(torch.isfinite(p.float()).all()) for s in states
+                     for p in s.params.parameters())
+        if not finite or launches[label]["ssd_scan"] <= 0:
+            fail(f"{label}: launches {launches[label]}, finite params {finite}")
+        n_params = sum(p.numel() for p in states[0].params.parameters())
+        print(f"  {n_params / 1e6:.1f} M parameters; two runs of 2 steps in {wall:.1f} s, "
+              f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"launches {launches[label]}  [{smi_line()}]")
+        del states
+    print(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2800,7 +3002,7 @@ def main() -> None:
     try:
         from repro_torch import kernels as K
         from repro_torch.core.gen_dst import GenDSTConfig, TorchDraws, gen_dst
-        from repro_torch.core.measures import factorize, full_column_entropy, subset_entropy
+        from repro_torch.core.measures import factorize, full_column_entropy
         from repro_torch.core.plan import execute, plan
         from repro_torch.data.tabular import PAPER_DATASETS, make_dataset, train_test_split
         from repro_torch.device import make_generator, resolve_device
@@ -3117,11 +3319,7 @@ def main() -> None:
         entry["launches"] = launches[entry["name"]]
         if entry["launches"] <= 0:
             fail(f"{entry['name']} was not launched on the main path")
-    rows_t = torch.as_tensor(result.row_idx, device=dev)
-    mask_t = torch.zeros(M, dtype=torch.bool, device=dev)
-    mask_t[torch.as_tensor(result.col_idx, device=dev)] = True
-    mask_t[coded.target_col] = True
-    f_plain = -abs(subset_entropy(coded.codes, rows_t, mask_t, B).item() - f_ref.item())
+    f_plain = plain_fitness(torch, coded, result.row_idx, result.col_idx)
     print(f"  dst_fitness {result.dst_fitness:.8f}, plain recomputation {f_plain:.8f}")
     if not (math.isfinite(result.dst_fitness)
             and abs(result.dst_fitness - f_plain) <= FIT_TOL):
@@ -3129,8 +3327,9 @@ def main() -> None:
     acc = result.final.test_acc
     if not (acc is not None and math.isfinite(acc) and 0.0 <= acc <= 1.0):
         fail(f"test accuracy {acc} is not a finite number in [0, 1]")
-    if len(result.row_idx) != n or int(mask_t.sum()) != m:
-        fail(f"subset shape {len(result.row_idx)} x {int(mask_t.sum())}, expected {n} x {m}")
+    n_cols = len({int(c) for c in result.col_idx} | {int(coded.target_col)})
+    if len(result.row_idx) != n or n_cols != m:
+        fail(f"subset shape {len(result.row_idx)} x {n_cols}, expected {n} x {m}")
 
     t_sec = phase_seconds(5, t_sec)
     # --- 6. where the main path's time goes (a second run, profiled) ---------
@@ -3196,6 +3395,14 @@ def main() -> None:
     for entry in kernels:
         entry["launches_phase17"] = {cell: counts.get(entry["name"], 0)
                                      for cell, counts in dry.items()}
+
+    # --- 18. the entry points of examples/ through their port modules --------------
+    examples = phase18_examples(torch, dev, K)
+    for entry in kernels:
+        entry["launches_phase18"] = {run: counts[entry["name"]]
+                                     for run, counts in examples.items()}
+        if not any(entry["launches_phase18"].values()):
+            fail(f"{entry['name']} was not launched by the entry points of phase 18")
 
     print(json.dumps({"kernels": kernels}))
     print(smi_line())

@@ -11,7 +11,7 @@ from .flash_attention import kernel as _flash_attention_kernel
 from .gen_dst import kernel as _gen_dst_kernel
 from .ssd_scan import kernel as _ssd_scan_kernel
 
-__all__ = ["launch_counts", "reset_launch_counts"]
+__all__ = ["GEN_DST_KERNELS", "launch_counts", "reset_launch_counts"]
 
 _KERNELS = {
     "masked_histogram": _entropy_kernel,
@@ -19,6 +19,8 @@ _KERNELS = {
     "flash_attention": _flash_attention_kernel,
     "ssd_scan": _ssd_scan_kernel,
 }
+# Gen-DST's two kernels (B1, B2): every Gen-DST search launches both
+GEN_DST_KERNELS = ("masked_histogram", "fused_delta_fitness")
 
 
 def launch_counts() -> dict:

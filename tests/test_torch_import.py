@@ -1,4 +1,5 @@
-"""The PyTorch port stands alone: no JAX, no reference package, no silent CPU.
+"""The PyTorch port stands alone: no JAX, no reference package (nor its
+``benchmarks/``), no silent CPU.
 
 Tolerances: none (import and dispatch checks only).
 """
@@ -22,8 +23,8 @@ def test_port_imports_neither_jax_nor_reference():
         "import repro_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
         "for name in names: importlib.import_module(name)\n"
-        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
-        "             or k == 'repro' or k.startswith('repro.'))\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'repro',\n"
+        "                                                          'benchmarks'))\n"
         "assert len(names) >= 20, names\n"
         "for m in ('models.lm', 'models.ssm', 'models.moe', 'models.encdec',\n"
         "          'configs.zamba2_2p7b', 'configs.qwen2_moe_a2p7b', 'configs.kimi_k2_1t',\n"
@@ -37,7 +38,10 @@ def test_port_imports_neither_jax_nor_reference():
         "          'launch.serve_tabular', 'train.optimizer', 'train.train_step',\n"
         "          'data.pipeline', 'launch.train', 'launch.mesh', 'distributed.sharding',\n"
         "          'distributed.compression', 'models.pmm', 'configs.base',\n"
-        "          'launch.costs', 'launch.dryrun'):\n"
+        "          'launch.costs', 'launch.dryrun', 'launch.compare', 'launch.quickstart',\n"
+        "          'launch.automl_tabular', 'launch.check_warm_start', 'launch.check_metrics',\n"
+        "          'launch.check_recompile_budget', 'launch.check_chaos_parity',\n"
+        "          'launch.serve_lm', 'launch.train_lm'):\n"
         "    assert 'repro_torch.' + m in names, m\n"
         "assert not bad, bad\n"
         "import torch.distributed as dist\n"
