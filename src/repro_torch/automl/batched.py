@@ -53,6 +53,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..obs import trace as _trace
 from .engine import (
     TrialCohort, _apply_preproc, _fit_preproc, _select_features, _trial_generator,
 )
@@ -487,6 +488,16 @@ def _run_subbatches(subbatches, common, c: int, d: int, epochs: int,
             for (idxs, desc, _g), (params_b, vaccs) in zip(subbatches, outs)]
 
 
+def _step_counts(subbatches, trials, epochs: int) -> dict:
+    """What the host issues for ``subbatches``: ``adam_steps``, the Adam
+    steps of the gradient sub-batches (``epochs`` each, step mask or not);
+    ``trial_steps``, the steps their trials take each, the steps a trial by
+    trial run would issue."""
+    grad = [idxs for idxs, desc, _g in subbatches if desc.kind != "closed"]
+    return {"adam_steps": epochs * len(grad),
+            "trial_steps": sum(min(trials[i].steps, epochs) for idxs in grad for i in idxs)}
+
+
 def eval_rung_batched(cohort, tids, rung_i: int, epochs: int, ctx,
                       out_of_budget, collect_params: bool = True) -> Tuple[list, list]:
     """Evaluate one successive-halving rung as per-family sub-batches.
@@ -496,12 +507,22 @@ def eval_rung_batched(cohort, tids, rung_i: int, epochs: int, ctx,
     ``positions[i]`` is its index into ``cohort``.  ``collect_params=False``
     (non-final rungs) skips the per-trial unpadding thunks.  Accuracies stay
     on the device until one rung-level sync; when a wall-clock budget is
-    active, each sub-batch is waited for before the budget check."""
+    active, each sub-batch is waited for before the budget check.
+
+    Three spans (``obs/trace``) split the rung: ``automl.rung.prep``
+    (variants, stacking, the inputs' copies), ``automl.rung.issue`` (the
+    sub-batches queued; attrs from ``_step_counts``) and
+    ``automl.rung.wait`` (the one copy of the accuracies, which waits for
+    the rung's device work)."""
     d, c = ctx["X_tr"].shape[1], ctx["n_classes"]
-    trials, variants, subbatches, common = _rung_inputs(cohort, tids, rung_i, epochs, ctx)
-    evaluated = _run_subbatches(subbatches, common, c, d, epochs,
-                                ctx.get("budget_active", False), out_of_budget)
-    results = _unpack_results(evaluated, trials, variants, collect_params)
+    with _trace.span(None, None, "automl.rung.prep"):
+        trials, variants, subbatches, common = _rung_inputs(cohort, tids, rung_i, epochs, ctx)
+    with _trace.span(None, None, "automl.rung.issue") as sp:
+        evaluated = _run_subbatches(subbatches, common, c, d, epochs,
+                                    ctx.get("budget_active", False), out_of_budget)
+        sp["attrs"].update(_step_counts(subbatches[:len(evaluated)], trials, epochs))
+    with _trace.span(None, None, "automl.rung.wait"):
+        results = _unpack_results(evaluated, trials, variants, collect_params)
     # single job: trial index == cohort position
     eval_pos = sorted(results)
     scored = [(cohort[p],) + results[p] for p in eval_pos]

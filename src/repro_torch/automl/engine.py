@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, make_generator, resolve_device
+from ..obs import trace as _trace
 from .models import FAMILIES, accuracy, train_model
 
 __all__ = [
@@ -77,6 +78,8 @@ class AutoMLResult:
     trials: List[tuple]        # (spec, val_acc), cohort order per rung
     rung_times: List[float] = dataclasses.field(default_factory=list)
     backend: str = "batched"
+    # the search's spans (``obs/trace``), filled by ``automl_fit``
+    spans: List[dict] = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,30 +178,39 @@ def _eval_rung_loop(cohort, tids, rung_i, epochs, ctx, out_of_budget, collect_pa
     """Sequential reference: one ``train_model`` call per trial.
 
     Returns ``(scored, positions)``: ``scored[i]`` is
-    ``(spec, val_acc, params, feat_idx, pre_stats)``."""
+    ``(spec, val_acc, params, feat_idx, pre_stats)``.  One
+    ``automl.rung.issue`` span covers the trials, each prepared, trained and
+    waited for in turn, with the batched backend's counts ``adam_steps``
+    and ``trial_steps`` (every Adam-trained trial issues its own steps, so
+    they are equal).  So under this backend ``.issue`` also holds the
+    preprocessing and the syncs that the batched backend's ``.prep`` and
+    ``.wait`` spans hold."""
     dev = ctx["device"]
     scored = []
-    for spec, tid in zip(cohort, tids):
-        if out_of_budget() and scored:
-            break
-        ckey = (spec.preproc, spec.feature_frac)
-        if ckey not in ctx["pipe_cache"]:
-            stats = _fit_preproc(spec.preproc, ctx["X_tr"])
-            fidx = _select_features(spec.feature_frac, ctx["X_tr"], ctx["y_tr"])
-            Xtr_p = apply_pipeline(spec, stats, fidx, ctx["X_tr"], dev)
-            Xval_p = apply_pipeline(spec, stats, fidx, ctx["X_val"], dev)
-            ctx["pipe_cache"][ckey] = (stats, fidx, Xtr_p, Xval_p)
-        stats, fidx, Xtr_p, Xval_p = ctx["pipe_cache"][ckey]
-        init = None
-        if ctx["init_provider"] is not None:
-            init = ctx["init_provider"](spec, tid, rung_i, Xtr_p.shape[1], ctx["n_classes"])
-        params = train_model(
-            _trial_generator(ctx["seed"], tid, rung_i, dev),
-            Xtr_p, ctx["y_tr_t"], spec.family, ctx["n_classes"], dict(spec.hp), epochs,
-            init_params=init,
-        )
-        vacc = accuracy(params, Xval_p, ctx["y_val_t"], spec.family)
-        scored.append((spec, vacc, params, fidx, stats))
+    with _trace.span(None, None, "automl.rung.issue") as sp:
+        for spec, tid in zip(cohort, tids):
+            if out_of_budget() and scored:
+                break
+            ckey = (spec.preproc, spec.feature_frac)
+            if ckey not in ctx["pipe_cache"]:
+                stats = _fit_preproc(spec.preproc, ctx["X_tr"])
+                fidx = _select_features(spec.feature_frac, ctx["X_tr"], ctx["y_tr"])
+                Xtr_p = apply_pipeline(spec, stats, fidx, ctx["X_tr"], dev)
+                Xval_p = apply_pipeline(spec, stats, fidx, ctx["X_val"], dev)
+                ctx["pipe_cache"][ckey] = (stats, fidx, Xtr_p, Xval_p)
+            stats, fidx, Xtr_p, Xval_p = ctx["pipe_cache"][ckey]
+            init = None
+            if ctx["init_provider"] is not None:
+                init = ctx["init_provider"](spec, tid, rung_i, Xtr_p.shape[1], ctx["n_classes"])
+            params = train_model(
+                _trial_generator(ctx["seed"], tid, rung_i, dev),
+                Xtr_p, ctx["y_tr_t"], spec.family, ctx["n_classes"], dict(spec.hp), epochs,
+                init_params=init,
+            )
+            vacc = accuracy(params, Xval_p, ctx["y_val_t"], spec.family)
+            scored.append((spec, vacc, params, fidx, stats))
+        steps = epochs * sum(FAMILIES[s.family].fit_closed is None for s, *_r in scored)
+        sp["attrs"].update(adam_steps=steps, trial_steps=steps)
     return scored, list(range(len(scored)))
 
 
@@ -557,13 +569,14 @@ def search_restore(snap: dict, device: DeviceLike = None) -> SearchState:
 
 def search_eval_rung(state: SearchState):
     """Evaluate the current rung in-process, through the configured
-    backend, and record it."""
+    backend, and record it.  An ``automl.rung`` span (attr ``rung``)
+    covers the evaluation; its extent is the rung's time."""
     _eval_rung = get_backend(state.config.backend)
     cohort, tids, epochs, collect = search_cohort(state)
-    t_rung = time.perf_counter()
-    scored, positions = _eval_rung(cohort, tids, state.rung_i, epochs, state.ctx,
-                                   state.out_of_budget, collect)
-    search_record(state, scored, positions, time.perf_counter() - t_rung)
+    with _trace.span(None, None, "automl.rung", rung=state.rung_i) as sp:
+        scored, positions = _eval_rung(cohort, tids, state.rung_i, epochs, state.ctx,
+                                       state.out_of_budget, collect)
+    search_record(state, scored, positions, sp["t1"] - sp["t0"])
 
 
 def automl_fit(
@@ -579,11 +592,23 @@ def automl_fit(
 ) -> AutoMLResult:
     """Run the AutoML search on ``device`` (default CUDA).  Returns the best
     pipeline found.  ``restrict_family`` implements the paper's restricted
-    fine-tune pass; ``init_provider`` is the tests' seam (module docstring)."""
-    state = search_init(X, y, config=config, restrict_family=restrict_family,
-                        device=device, init_provider=init_provider)
-    # successive halving over epoch rungs: each rung retrains the surviving
-    # cohort from scratch at the next epoch budget (DESIGN.md §10.2)
-    while not state.done:
-        search_eval_rung(state)
-    return search_result(state, X_test, y_test)
+    fine-tune pass; ``init_provider`` is the tests' seam (module docstring).
+
+    The search's spans (``automl.init`` around ``search_init``, an
+    ``automl.rung`` a rung with the backend's spans inside, ``automl.result``
+    around ``search_result``; ``obs/trace``) go to
+    ``AutoMLResult.spans`` and, when the caller collects spans, to the
+    caller's sink too, under its trace; a bare call is a trace of its own."""
+    spans: List[dict] = []
+    with _trace.collect(spans):
+        with _trace.span(None, None, "automl.init"):
+            state = search_init(X, y, config=config, restrict_family=restrict_family,
+                                device=device, init_provider=init_provider)
+        # successive halving over epoch rungs: each rung retrains the surviving
+        # cohort from scratch at the next epoch budget (DESIGN.md §10.2)
+        while not state.done:
+            search_eval_rung(state)
+        with _trace.span(None, None, "automl.result"):
+            res = search_result(state, X_test, y_test)
+    res.spans = spans
+    return res

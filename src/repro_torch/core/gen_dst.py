@@ -44,6 +44,7 @@ import torch
 from ..device import DeviceLike, make_generator, resolve_device
 from ..kernels.entropy.ops import population_histogram_rows
 from ..kernels.gen_dst.ops import fused_delta_fitness
+from ..obs import trace as _trace
 from .measures import MEASURES, CodedDataset, full_column_entropy
 
 __all__ = ["GenDSTConfig", "DSTResult", "TorchDraws", "gen_dst", "gen_dst_batch",
@@ -396,29 +397,15 @@ def _gen_dst_run(codes, values, N: int, n: int, m: int, cfg: GenDSTConfig, B: in
     population, so each generation launches B1 and B2 once whatever D is;
     row indices stay in [0, N) and are offset by d*N where they read the
     table.  Returns per dataset: best rows (D, n), masks (D, M), fitness
-    (D,), history (D, psi) and F(D) (D,)."""
+    (D,), history (D, psi) and F(D) (D,).  Records a ``gen_dst.init`` span
+    and one ``gen_dst.generation`` span a generation (attr ``gen``): each
+    covers the issuing of its work, and nothing waits for the device."""
     M = codes.shape[1]
     D = codes.shape[0] // N
     I, phi = cfg.num_islands, cfg.phi
     G = D * I                                    # islands of all datasets
     dev = codes.device
     entropy = cfg.measure == "entropy"
-
-    parts = [slice(d * N, (d + 1) * N) for d in range(D)]
-    if entropy:
-        f_refs = [full_column_entropy(codes[p], B).mean() for p in parts]
-    else:
-        measure_fn = MEASURES[cfg.measure]
-        f_refs = [measure_fn(values[p]) for p in parts]
-    if D == 1:
-        f_ref = f_cand = f_refs[0]
-        offset = None
-    else:
-        # one F(D) per candidate, and each island's row offset in the table
-        f_ref = torch.stack(f_refs)
-        f_cand = f_ref[:, None, None].expand(D, I, phi).reshape(G, phi)
-        offset = (torch.arange(D, device=dev, dtype=torch.int32) * N)[:, None].expand(
-            D, I).reshape(G, 1)
 
     def in_table(idx):
         """(G, phi, ...) row indices as rows of the stacked table."""
@@ -430,8 +417,6 @@ def _gen_dst_run(codes, values, N: int, n: int, m: int, cfg: GenDSTConfig, B: in
         # one launch gathers the candidates' rows and counts them
         return population_histogram_rows(codes, in_table(rows).reshape(-1, n), B).reshape(
             G, phi, M, B)
-
-    no_delta = torch.zeros((G, phi), dtype=torch.float32, device=dev)
 
     def fitness(rows, cols, counts, applied, old_codes, new_codes):
         if not entropy:
@@ -446,49 +431,68 @@ def _gen_dst_run(codes, values, N: int, n: int, m: int, cfg: GenDSTConfig, B: in
                 rows.reshape(D, I * phi, n).gather(1, g[..., None].expand(D, 1, n))[:, 0],
                 cols.reshape(D, I * phi, M).gather(1, g[..., None].expand(D, 1, M))[:, 0])
 
-    rows, cols = _init_population(draws.init(I, phi, N, M, n), N, M, n, m, target)
-    counts = pop_counts(rows) if entropy else None
-    zero_codes = torch.zeros((G, phi, M), dtype=torch.int32, device=dev)
-    counts, fit0 = fitness(rows, cols, counts, no_delta, zero_codes, zero_codes)
-    best_f, best_r, best_c = best_of(fit0, rows, cols)
+    with _trace.span(None, None, "gen_dst.init"):
+        parts = [slice(d * N, (d + 1) * N) for d in range(D)]
+        if entropy:
+            f_refs = [full_column_entropy(codes[p], B).mean() for p in parts]
+        else:
+            measure_fn = MEASURES[cfg.measure]
+            f_refs = [measure_fn(values[p]) for p in parts]
+        if D == 1:
+            f_ref = f_cand = f_refs[0]
+            offset = None
+        else:
+            # one F(D) per candidate, and each island's row offset in the table
+            f_ref = torch.stack(f_refs)
+            f_cand = f_ref[:, None, None].expand(D, I, phi).reshape(G, phi)
+            offset = (torch.arange(D, device=dev, dtype=torch.int32) * N)[:, None].expand(
+                D, I).reshape(G, 1)
+
+        no_delta = torch.zeros((G, phi), dtype=torch.float32, device=dev)
+        rows, cols = _init_population(draws.init(I, phi, N, M, n), N, M, n, m, target)
+        counts = pop_counts(rows) if entropy else None
+        zero_codes = torch.zeros((G, phi, M), dtype=torch.int32, device=dev)
+        counts, fit0 = fitness(rows, cols, counts, no_delta, zero_codes, zero_codes)
+        best_f, best_r, best_c = best_of(fit0, rows, cols)
 
     op_kw = dict(N=N, M=M, n=n, m=m, p_rc=cfg.p_rc, target=target)
     k_mig = max(1, int(round(cfg.migrate_frac * phi)))
     n_drawn = phi - _n_elite(phi, cfg.alpha)
     history = []
     for gen_idx in range(cfg.psi):
-        g = draws.generation()
-        rows1, cols1, applied, old_vals, fresh = _mutate_core(
-            g.mutate(I, phi, N, M, n), rows, cols, xi=cfg.xi, **op_kw)
-        # which counts and delta feed the fused step: a recompute after
-        # crossover (zero delta), or the carried counts and the mutation delta
-        if gen_idx % cfg.cross_every == 0:
-            rows2, cols2 = _crossover(g.cross(I, phi, N, M, n, m), rows1, cols1, **op_kw)
-            counts_b = pop_counts(rows2) if entropy else None
-            app = no_delta
-        elif not entropy:
-            rows2, cols2, counts_b, app = rows1, cols1, None, no_delta
-        elif cfg.incremental:
-            rows2, cols2, counts_b, app = rows1, cols1, counts, applied.to(torch.float32)
-        else:
-            rows2, cols2, counts_b, app = rows1, cols1, pop_counts(rows1), no_delta
-        counts2, fit = fitness(rows2, cols2, counts_b, app,
-                               codes[in_table(old_vals).long()], codes[in_table(fresh).long()])
+        with _trace.span(None, None, "gen_dst.generation", gen=gen_idx):
+            g = draws.generation()
+            rows1, cols1, applied, old_vals, fresh = _mutate_core(
+                g.mutate(I, phi, N, M, n), rows, cols, xi=cfg.xi, **op_kw)
+            # which counts and delta feed the fused step: a recompute after
+            # crossover (zero delta), or the carried counts and the mutation delta
+            if gen_idx % cfg.cross_every == 0:
+                rows2, cols2 = _crossover(g.cross(I, phi, N, M, n, m), rows1, cols1, **op_kw)
+                counts_b = pop_counts(rows2) if entropy else None
+                app = no_delta
+            elif not entropy:
+                rows2, cols2, counts_b, app = rows1, cols1, None, no_delta
+            elif cfg.incremental:
+                rows2, cols2, counts_b, app = rows1, cols1, counts, applied.to(torch.float32)
+            else:
+                rows2, cols2, counts_b, app = rows1, cols1, pop_counts(rows1), no_delta
+            counts2, fit = fitness(rows2, cols2, counts_b, app,
+                                   codes[in_table(old_vals).long()], codes[in_table(fresh).long()])
 
-        f_best, r_best, c_best = best_of(fit, rows2, cols2)
-        better = f_best > best_f
-        best_f = torch.where(better, f_best, best_f)
-        best_r = torch.where(better[:, None], r_best, best_r)
-        best_c = torch.where(better[:, None], c_best, best_c)
+            f_best, r_best, c_best = best_of(fit, rows2, cols2)
+            better = f_best > best_f
+            best_f = torch.where(better, f_best, best_f)
+            best_r = torch.where(better[:, None], r_best, best_r)
+            best_c = torch.where(better[:, None], c_best, best_c)
 
-        if I > 1 and (gen_idx + 1) % cfg.migrate_every == 0:
-            rows2, cols2, counts2, fit = _ring_migrate(rows2, cols2, counts2, fit, k=k_mig,
-                                                       groups=D)
+            if I > 1 and (gen_idx + 1) % cfg.migrate_every == 0:
+                rows2, cols2, counts2, fit = _ring_migrate(rows2, cols2, counts2, fit, k=k_mig,
+                                                           groups=D)
 
-        keep = _select_idx(fit, g.select(_selection_probs(fit), n_drawn), alpha=cfg.alpha)
-        rows, cols = _gather_cands(rows2, keep), _gather_cands(cols2, keep)
-        counts = None if counts2 is None else _gather_cands(counts2, keep)
-        history.append(best_f)
+            keep = _select_idx(fit, g.select(_selection_probs(fit), n_drawn), alpha=cfg.alpha)
+            rows, cols = _gather_cands(rows2, keep), _gather_cands(cols2, keep)
+            counts = None if counts2 is None else _gather_cands(counts2, keep)
+            history.append(best_f)
     hist = torch.stack(history, dim=1) if history else torch.zeros((D, 0), device=dev)
     return best_r, best_c, best_f, hist, f_ref.reshape(D)
 

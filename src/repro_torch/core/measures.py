@@ -19,6 +19,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..kernels.entropy.ref import entropy_bits64
+from ..obs import trace as _trace
 
 __all__ = [
     "CodedDataset",
@@ -80,41 +81,46 @@ def factorize(
     Columns with <= ``categorical_threshold`` distinct values keep exact value
     identity (one code per distinct value).  Denser columns are quantile-
     binned to ``max_bins`` codes.  The target column ``y`` (if given) is
-    appended as the last column and is always treated as categorical."""
+    appended as the last column and is always treated as categorical.
+
+    Records two spans (``obs/trace``): ``factorize.host``, the per-column
+    NumPy loop, and ``factorize.copy``, the three copies to ``device``."""
     dev = resolve_device(device)
-    X = np.asarray(X)
-    cols = [np.asarray(X[:, j]) for j in range(X.shape[1])]
-    if y is not None:
-        cols.append(np.asarray(y))
-    N = X.shape[0]
-    codes = np.empty((N, len(cols)), dtype=np.int32)
-    n_bins = np.empty((len(cols),), dtype=np.int32)
-    values = np.empty((N, len(cols)), dtype=np.float32)
-    for j, col in enumerate(cols):
-        colf = col.astype(np.float64)
-        values[:, j] = colf.astype(np.float32)
-        uniq, inv = np.unique(colf, return_inverse=True)
-        if len(uniq) <= max(categorical_threshold, 2) or (
-            y is not None and j == len(cols) - 1
-        ):
-            codes[:, j] = inv.astype(np.int32)
-            n_bins[j] = len(uniq)
-        else:
-            # quantile binning to at most max_bins codes
-            qs = np.quantile(colf, np.linspace(0.0, 1.0, max_bins + 1)[1:-1])
-            binned = np.searchsorted(qs, colf, side="right")
-            # re-densify (some quantile bins may be empty)
-            uniq_b, inv_b = np.unique(binned, return_inverse=True)
-            codes[:, j] = inv_b.astype(np.int32)
-            n_bins[j] = len(uniq_b)
-    B = int(max(int(n_bins.max()), 2))
-    return CodedDataset(
-        codes=torch.from_numpy(codes).to(dev),
-        values=torch.from_numpy(values).to(dev),
-        n_bins=torch.from_numpy(n_bins).to(dev),
-        target_col=len(cols) - 1 if y is not None else X.shape[1] - 1,
-        max_bins=B,
-    )
+    with _trace.span(None, None, "factorize.host"):
+        X = np.asarray(X)
+        cols = [np.asarray(X[:, j]) for j in range(X.shape[1])]
+        if y is not None:
+            cols.append(np.asarray(y))
+        N = X.shape[0]
+        codes = np.empty((N, len(cols)), dtype=np.int32)
+        n_bins = np.empty((len(cols),), dtype=np.int32)
+        values = np.empty((N, len(cols)), dtype=np.float32)
+        for j, col in enumerate(cols):
+            colf = col.astype(np.float64)
+            values[:, j] = colf.astype(np.float32)
+            uniq, inv = np.unique(colf, return_inverse=True)
+            if len(uniq) <= max(categorical_threshold, 2) or (
+                y is not None and j == len(cols) - 1
+            ):
+                codes[:, j] = inv.astype(np.int32)
+                n_bins[j] = len(uniq)
+            else:
+                # quantile binning to at most max_bins codes
+                qs = np.quantile(colf, np.linspace(0.0, 1.0, max_bins + 1)[1:-1])
+                binned = np.searchsorted(qs, colf, side="right")
+                # re-densify (some quantile bins may be empty)
+                uniq_b, inv_b = np.unique(binned, return_inverse=True)
+                codes[:, j] = inv_b.astype(np.int32)
+                n_bins[j] = len(uniq_b)
+        B = int(max(int(n_bins.max()), 2))
+    with _trace.span(None, None, "factorize.copy"):
+        return CodedDataset(
+            codes=torch.from_numpy(codes).to(dev),
+            values=torch.from_numpy(values).to(dev),
+            n_bins=torch.from_numpy(n_bins).to(dev),
+            target_col=len(cols) - 1 if y is not None else X.shape[1] - 1,
+            max_bins=B,
+        )
 
 
 def host_codes(coded: CodedDataset) -> tuple:

@@ -22,7 +22,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import time
 from typing import Callable, List, Optional, Tuple, Union
 
 import numpy as np
@@ -154,47 +153,49 @@ def execute(
     ``seed`` seeds the strategy's generator (on the device) and the subset
     patch draw.  The per-phase ``times`` are recorded as spans: pass
     ``trace_sink=[]`` to receive the closed span records.  Each phase ends
-    with its results on the host, so its time covers its device work."""
+    with its results on the host, so its time covers its device work.
+
+    The call is one trace of its own.  Its four phase spans (``factorize``,
+    ``gen_dst``, ``sub_automl``, ``fine_tune``) are the roots; the spans
+    that the layers below record go into the same sink under them
+    (``obs/trace.collect``), innermost first."""
     from .substrat import SubStratResult, build_subset, dst_feature_columns, nf_test_eval
     dev = resolve_device(device)
     times = {}
     spans = [] if trace_sink is None else trace_sink
-    strat_name = (p.strategy if isinstance(p.strategy, str)
-                  else getattr(p.strategy, "__name__", "<callable>"))
-    tid = _trace.span_id("substrat-oneshot", strat_name)
 
     @contextlib.contextmanager
     def _phase(name, tkey):
-        t0 = time.perf_counter()
-        with _trace.span(spans, tid, name, phase=name):
+        with _trace.span(None, None, name, phase=name) as sp:
             yield
-        times[tkey] = times.get(tkey, 0.0) + (time.perf_counter() - t0)
+        times[tkey] = times.get(tkey, 0.0) + (sp["t1"] - sp["t0"])
 
-    with _phase("factorize", "factorize_s"):
-        coded = factorize(X, y, device=dev) if coded is None else coded.to(dev)
+    with _trace.collect(spans):
+        with _phase("factorize", "factorize_s"):
+            coded = factorize(X, y, device=dev) if coded is None else coded.to(dev)
 
-    with _phase("gen_dst", "gen_dst_s"):
-        subset: SubsetResult = run_strategy(
-            p.strategy, make_generator(seed, dev), coded, p.n, p.m, p.strategy_opts)
-    col_idx = dst_feature_columns(subset.col_mask, coded.target_col)
+        with _phase("gen_dst", "gen_dst_s"):
+            subset: SubsetResult = run_strategy(
+                p.strategy, make_generator(seed, dev), coded, p.n, p.m, p.strategy_opts)
+        col_idx = dst_feature_columns(subset.col_mask, coded.target_col)
 
-    with _phase("sub_automl", "automl_sub_s"):
-        X_sub, y_sub = build_subset(X, y, subset.row_idx, col_idx,
-                                    make_generator(seed ^ 0x5AB5))
-        intermediate = automl_fit(X_sub, y_sub, config=p.resolved_sub_automl(), device=dev)
+        with _phase("sub_automl", "automl_sub_s"):
+            X_sub, y_sub = build_subset(X, y, subset.row_idx, col_idx,
+                                        make_generator(seed ^ 0x5AB5))
+            intermediate = automl_fit(X_sub, y_sub, config=p.resolved_sub_automl(), device=dev)
 
-    if p.fine_tune:
-        with _phase("fine_tune", "fine_tune_s"):
-            final = automl_fit(
-                X, y,
-                config=p.resolved_ft_automl(),
-                restrict_family=intermediate.spec.family,
-                X_test=X_test, y_test=y_test, device=dev,
-            )
-    else:
-        final = intermediate
-        if X_test is not None:
-            final = nf_test_eval(intermediate, y_sub, col_idx, X_test, y_test)
+        if p.fine_tune:
+            with _phase("fine_tune", "fine_tune_s"):
+                final = automl_fit(
+                    X, y,
+                    config=p.resolved_ft_automl(),
+                    restrict_family=intermediate.spec.family,
+                    X_test=X_test, y_test=y_test, device=dev,
+                )
+        else:
+            final = intermediate
+            if X_test is not None:
+                final = nf_test_eval(intermediate, y_sub, col_idx, X_test, y_test)
 
     return SubStratResult(
         final=final,

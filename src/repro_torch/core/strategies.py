@@ -26,6 +26,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from ..obs import trace as _trace
 from . import baselines as B
 from .gen_dst import (
     DSTResult, GenDSTConfig, _default_draws, _on_device, _resolve_nm, gen_dst, gen_dst_batch,
@@ -115,14 +116,17 @@ def run_strategy(
     ``strategy`` is a registry name or a bare callable; ``opts`` is a
     ``(key, value)`` item sequence forwarded as keyword arguments.  The
     time includes the transfer of the result to the host, so it covers the
-    device work."""
+    device work; a ``gen_dst.to_host`` span (``obs/trace``) covers that
+    transfer, which waits for the search's device work."""
     if callable(strategy):
         fn, name = strategy, getattr(strategy, "__name__", "<callable>")
     else:
         spec = get_strategy(strategy)
         fn, name = spec.fn, spec.name
     t0 = time.perf_counter()
-    rows, mask, fitness = _host(fn(generator, coded, n, m, **dict(opts)))
+    dst = fn(generator, coded, n, m, **dict(opts))
+    with _trace.span(None, None, "gen_dst.to_host"):
+        rows, mask, fitness = _host(dst)
     return SubsetResult(rows, mask, fitness, name, time.perf_counter() - t0)
 
 

@@ -27,8 +27,8 @@ built on ``launch/flops.py``'s analytic ``tabular_trial_flops``.
 
 **Dispatch profile hook.**  Opt-in: ``set_dispatch_hook(fn)`` installs a
 callable that receives ``(name, seconds, meta)`` after every scheduler
-dispatch.  ``install_monitoring()`` returns False: torch has no counterpart
-of ``jax.monitoring``'s compile events.
+dispatch.  Torch has no counterpart of ``jax.monitoring``'s compile
+events, so the reference's ``install_monitoring`` has none here.
 """
 from __future__ import annotations
 
@@ -37,10 +37,9 @@ from typing import Callable, Dict, Optional, Sequence
 
 from .metrics import render_exposition_line
 
-__all__ = ["dispatch_event", "install_monitoring", "new_tracings_since",
-           "note_trace", "pack_flops", "render_prometheus", "reset_tracing",
-           "set_dispatch_hook", "total_tracings", "tracing_counts",
-           "tracing_snapshot"]
+__all__ = ["dispatch_event", "new_tracings_since", "note_trace", "pack_flops",
+           "render_prometheus", "reset_tracing", "set_dispatch_hook", "total_tracings",
+           "tracing_counts", "tracing_snapshot"]
 
 _lock = threading.Lock()
 _TRACE_COUNTS: Dict[str, int] = {}
@@ -86,12 +85,6 @@ def new_tracings_since(snapshot: Dict[str, int]) -> Dict[str, int]:
 def reset_tracing() -> None:
     with _lock:
         _TRACE_COUNTS.clear()
-
-
-def install_monitoring() -> bool:
-    """The reference subscribes to ``jax.monitoring`` here; torch has no
-    such event stream, so nothing is installed."""
-    return False
 
 
 # ---------------------------------------------------------------------------

@@ -137,7 +137,6 @@ def test_build_counters_keep_the_reference_protocol():
         assert 'torch_kernel_builds_total{site="masked_histogram"} 2' in text
     finally:
         torchprof.reset_tracing()
-    assert torchprof.install_monitoring() is False
 
 
 def test_prometheus_block_is_well_formed_and_counts_launches():
