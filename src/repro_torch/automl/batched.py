@@ -511,13 +511,14 @@ def eval_rung_batched(cohort, tids, rung_i: int, epochs: int, ctx,
 
     Three spans (``obs/trace``) split the rung: ``automl.rung.prep``
     (variants, stacking, the inputs' copies), ``automl.rung.issue`` (the
-    sub-batches queued; attrs from ``_step_counts``) and
+    sub-batches queued; attrs from ``_step_counts``, and ``graph_steps``,
+    the steps ``models.adam_train`` replayed from a CUDA graph) and
     ``automl.rung.wait`` (the one copy of the accuracies, which waits for
     the rung's device work)."""
     d, c = ctx["X_tr"].shape[1], ctx["n_classes"]
     with _trace.span(None, None, "automl.rung.prep"):
         trials, variants, subbatches, common = _rung_inputs(cohort, tids, rung_i, epochs, ctx)
-    with _trace.span(None, None, "automl.rung.issue") as sp:
+    with _trace.span(None, None, "automl.rung.issue", graph_steps=0) as sp:
         evaluated = _run_subbatches(subbatches, common, c, d, epochs,
                                     ctx.get("budget_active", False), out_of_budget)
         sp["attrs"].update(_step_counts(subbatches[:len(evaluated)], trials, epochs))

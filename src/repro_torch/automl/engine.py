@@ -182,12 +182,13 @@ def _eval_rung_loop(cohort, tids, rung_i, epochs, ctx, out_of_budget, collect_pa
     ``automl.rung.issue`` span covers the trials, each prepared, trained and
     waited for in turn, with the batched backend's counts ``adam_steps``
     and ``trial_steps`` (every Adam-trained trial issues its own steps, so
-    they are equal).  So under this backend ``.issue`` also holds the
-    preprocessing and the syncs that the batched backend's ``.prep`` and
-    ``.wait`` spans hold."""
+    they are equal) and ``graph_steps``, the steps ``models.adam_train``
+    replayed from a CUDA graph.  So under this backend ``.issue`` also
+    holds the preprocessing and the syncs that the batched backend's
+    ``.prep`` and ``.wait`` spans hold."""
     dev = ctx["device"]
     scored = []
-    with _trace.span(None, None, "automl.rung.issue") as sp:
+    with _trace.span(None, None, "automl.rung.issue", graph_steps=0) as sp:
         for spec, tid in zip(cohort, tids):
             if out_of_budget() and scored:
                 break

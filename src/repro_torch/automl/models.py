@@ -21,15 +21,20 @@ broadcast to batched products (``torch.bmm``; trial by trial above
 broadcast.
 
 Training is full-batch Adam (``adam_train``), a Python loop over steps whose
-tensors stay on the device.  Float32 matmuls run in full float32: the port
-turns TF32 off when it resolves a CUDA device (``device.py``).
+tensors stay on the device; on a card, a call of ``ADAM_GRAPH_MIN_STEPS`` or
+more steps replays its steps from a CUDA graph of one step.  Float32 matmuls
+run in full float32: the port turns TF32 off when it resolves a CUDA device
+(``device.py``).
 """
 from __future__ import annotations
 
+import threading
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+
+from ..obs import trace as _trace
 
 __all__ = ["FAMILIES", "ModelFamily", "adam_train", "train_model",
            "predict_model", "accuracy", "masked_loss", "masked_fit",
@@ -66,6 +71,14 @@ def _per_trial(v, ndim: int):
 # (2.7 ms per 128 x 128 weight gradient at 83k rows on an H100).  Below it
 # the stack is bound by launches, and one batched product wins.
 STACKED_MATMUL_MAX_ROWS = 2048
+
+# From this many steps on, ``adam_train`` on a card replays its steps from a
+# CUDA graph of one step; below it, the eager loop.  Capturing costs about
+# one eager step of host time on top of the eager first step: on an H100,
+# a whole 2-step call took 0.5-1.1 ms longer through the graph (7.08 against
+# 5.98 ms for two MLP trials over 11,145 rows) and a 3-step call 0.6-1.8 ms
+# less (7.51 against 8.83 ms), at each of the benchmark's trial shapes.
+ADAM_GRAPH_MIN_STEPS = 3
 
 
 def _matmul(X, w):
@@ -332,36 +345,143 @@ def adam_train(loss_fn, params0, lr, epochs: int, n_steps=None):
     §13.1): an int truncates the run; a per-trial ``(T,)`` tensor keeps all
     ``epochs`` steps and, from step ``n_steps[i]`` on, selects trial *i*'s
     previous ``(params, m, v)`` with ``torch.where``, so each trial equals
-    its own ``epochs=n_steps[i]`` run.  Nothing here waits for the host."""
+    its own ``epochs=n_steps[i]`` run.  Nothing here waits for the host.
+
+    Each step is ``_AdamStep``, run eagerly ``steps`` times.  On a card, a
+    run of at least ``ADAM_GRAPH_MIN_STEPS`` steps (outside another capture)
+    takes its first step eagerly, captures the second into a CUDA graph and
+    replays it for the rest (``_adam_graphed``): the same operations in the
+    same order, so the same trajectory, for one launch a step.  The replayed
+    steps are added to the open span's ``graph_steps`` where its opener asked
+    for the count (``_count_graph_steps``)."""
     flat = [p.detach().clone() for p in _leaves(params0)]
     dev = flat[0].device if flat else None
-    m = [torch.zeros_like(x) for x in flat]
-    v = [torch.zeros_like(x) for x in flat]
     masked = isinstance(n_steps, torch.Tensor)
     steps = epochs if n_steps is None or masked else min(epochs, int(n_steps))
     t = torch.arange(1, steps + 1, dtype=torch.float32, device=dev)
     bc1 = 1 - torch.pow(torch.full((), 0.9, dtype=torch.float32, device=dev), t)
     bc2 = 1 - torch.pow(torch.full((), 0.999, dtype=torch.float32, device=dev), t)
-    lrs = [_per_trial(lr, x.ndim) for x in flat]
-    if masked:
-        active = torch.arange(steps, device=dev)[:, None] < n_steps[None, :]   # (steps, T)
-    for i in range(steps):
-        leaves = [x.requires_grad_(True) for x in flat]
-        loss = loss_fn(_rebuild(params0, leaves))
-        grads = torch.autograd.grad(loss.sum() if loss.ndim else loss, leaves)
-        with torch.no_grad():
-            m_n = [0.9 * mi + 0.1 * gi for mi, gi in zip(m, grads)]
-            v_n = [0.999 * vi + 0.001 * gi ** 2 for vi, gi in zip(v, grads)]
-            flat_n = [fi - li * (mi / bc1[i]) / (torch.sqrt(vi / bc2[i]) + 1e-8)
-                      for fi, li, mi, vi in zip(flat, lrs, m_n, v_n)]
-            if masked:
-                def sel(new, old):
-                    return [torch.where(_per_trial(active[i], o.ndim), a, o)
-                            for a, o in zip(new, old)]
-                flat, m, v = sel(flat_n, flat), sel(m_n, m), sel(v_n, v)
-            else:
-                flat, m, v = flat_n, m_n, v_n
+    active = (torch.arange(steps, device=dev)[:, None] < n_steps[None, :]   # (steps, T)
+              if masked else None)
+    step = _AdamStep(loss_fn, params0, flat, [_per_trial(lr, x.ndim) for x in flat],
+                     bc1, bc2, active)
+    if (dev is not None and dev.type == "cuda" and steps >= ADAM_GRAPH_MIN_STEPS
+            and not torch.cuda.is_current_stream_capturing()):
+        _adam_graphed(step, steps)
+    else:
+        for _ in range(steps):
+            step()
     return _rebuild(params0, [x.detach() for x in flat])
+
+
+class _AdamStep:
+    """One step of ``adam_train``, which a CUDA graph can capture: ``flat``
+    and its moments ``m`` and ``v`` are static buffers updated in place, and
+    the step's bias corrections (and step mask) are read at the device
+    counter ``k``, which the step increments, so no value of the step comes
+    from the host.  ``m.mul_(0.9).add_(0.1 * g)`` rounds as ``0.9 * m + 0.1 *
+    g`` does; a masked step computes the new values out of place and selects
+    them into the buffers."""
+
+    def __init__(self, loss_fn, params0, flat, lrs, bc1, bc2, active=None):
+        self.loss_fn, self.params0 = loss_fn, params0
+        self.flat, self.lrs = flat, lrs
+        self.m = [torch.zeros_like(x) for x in flat]
+        self.v = [torch.zeros_like(x) for x in flat]
+        self.bc = torch.stack((bc1, bc2), 1)                     # (steps, 2)
+        self.active = active                                     # (steps, T) or None
+        self.k = torch.zeros((1,), dtype=torch.int64, device=self.bc.device)
+        for x in flat:
+            x.requires_grad_(True)
+
+    def __call__(self):
+        loss = self.loss_fn(_rebuild(self.params0, self.flat))
+        grads = torch.autograd.grad(loss.sum() if loss.ndim else loss, self.flat)
+        with torch.no_grad():
+            bc = self.bc.index_select(0, self.k)[0]
+            b1, b2 = bc[0], bc[1]
+            if self.active is None:
+                for f, li, mi, vi, g in zip(self.flat, self.lrs, self.m, self.v, grads):
+                    mi.mul_(0.9).add_(0.1 * g)
+                    vi.mul_(0.999).add_(0.001 * g ** 2)
+                    f.sub_(li * (mi / b1) / (torch.sqrt(vi / b2) + 1e-8))
+            else:
+                act = self.active.index_select(0, self.k)[0]
+                for f, li, mi, vi, g in zip(self.flat, self.lrs, self.m, self.v, grads):
+                    keep = _per_trial(act, f.ndim)
+                    m_n = 0.9 * mi + 0.1 * g
+                    v_n = 0.999 * vi + 0.001 * g ** 2
+                    f_n = f - li * (m_n / b1) / (torch.sqrt(v_n / b2) + 1e-8)
+                    torch.where(keep, f_n, f, out=f)
+                    torch.where(keep, m_n, mi, out=mi)
+                    torch.where(keep, v_n, vi, out=vi)
+            self.k.add_(1)
+
+
+# A side stream to capture on (the legacy default stream cannot capture) and
+# one memory pool that every capture of the thread shares: a graph lives for
+# one ``adam_train`` call, and the next call's capture reuses its blocks
+# rather than allocating a pool of its own.  The pool is the one of a graph
+# of one fill captured once and never replayed: a pool whose last graph is
+# freed cannot take another capture.  So the pool lives as long as its
+# thread and keeps the segments of the largest step the thread ever
+# captured, which eager allocations cannot use.  Per thread: two captures
+# must never run at once on one stream or into one pool.
+_CAPTURE = threading.local()
+
+
+def _capture_resources(dev):
+    """(side stream, graph holding the shared pool) of this thread on ``dev``."""
+    per_dev = getattr(_CAPTURE, "per_dev", None)
+    if per_dev is None:
+        per_dev = _CAPTURE.per_dev = {}
+    key = dev.index if dev.index is not None else torch.cuda.current_device()
+    if key not in per_dev:
+        with torch.cuda.device(key):
+            side, holder = torch.cuda.Stream(), torch.cuda.CUDAGraph()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                holder.capture_begin(capture_error_mode="thread_local")
+                try:
+                    torch.zeros((1,), device=dev)
+                finally:
+                    holder.capture_end()
+        per_dev[key] = (side, holder)
+    return per_dev[key]
+
+
+def _adam_graphed(step: _AdamStep, steps: int) -> None:
+    """Run ``steps`` steps of ``step``: the first eagerly on the side stream
+    (a real step, and the warm-up capture needs: autograd's device thread,
+    cuBLAS's workspace for that stream), one captured there, then ``steps -
+    1`` replays on the caller's stream.  Nothing waits for the host.  The
+    graph is freed when the call returns; launches still queued finish
+    first."""
+    dev = step.k.device
+    side, holder = _capture_resources(dev)
+    caller = torch.cuda.current_stream(dev)
+    side.wait_stream(caller)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        step()
+        graph.capture_begin(pool=holder.pool(), capture_error_mode="thread_local")
+        try:
+            step()
+        finally:
+            graph.capture_end()
+    caller.wait_stream(side)
+    for _ in range(steps - 1):
+        graph.replay()
+    _count_graph_steps(steps - 1)
+
+
+def _count_graph_steps(n: int) -> None:
+    """Add ``n`` replayed steps to the open span's ``graph_steps``, where
+    the span's opener asked for the count by opening it at 0 (the AutoML
+    backends' ``automl.rung.issue``); any other span is left as it is."""
+    sp = _trace.current_span()
+    if sp is not None and "graph_steps" in sp["attrs"]:
+        sp["attrs"]["graph_steps"] += n
 
 
 def train_model(gen: torch.Generator, X, y, family: str, n_classes: int, hp: dict,
