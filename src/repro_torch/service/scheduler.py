@@ -537,14 +537,21 @@ class Scheduler:
                 fitness=job.dst_fitness, cost_s=elapsed))
         job.phase = "sub_automl"
 
-    def _dst(self, job: SubStratJob) -> None:
-        if self._reprobe(job):
-            return
-        p = job.plan
-        t0 = time.perf_counter()
-        subset = run_strategy(p.strategy, make_generator(job.seed, self.device),
-                              job.coded, p.n, p.m, p.strategy_opts)
-        self._record_subset(job, subset, time.perf_counter() - t0)
+    def _dst(self, job: SubStratJob) -> bool:
+        """Search one job's subset alone; False where a re-probe of the
+        cache made the search unnecessary.  A failed search fails its job
+        and counts as searched."""
+        try:
+            if self._reprobe(job):
+                return False
+            p = job.plan
+            t0 = time.perf_counter()
+            subset = run_strategy(p.strategy, make_generator(job.seed, self.device),
+                                  job.coded, p.n, p.m, p.strategy_opts)
+            self._record_subset(job, subset, time.perf_counter() - t0)
+        except Exception as e:   # noqa: BLE001 — isolate job failures
+            self._fail(job, e)
+        return True
 
     def _dst_batch_key(self, job: SubStratJob):
         """Hashable batch-compatibility class of a job's subset search, or
@@ -561,7 +568,16 @@ class Scheduler:
         """Run the queue's pending subset searches: group batchable jobs by
         strategy/shape compatibility into one batched dispatch each
         (identical-cache-key duplicates coalesce onto one search slot),
-        everything else solo."""
+        everything else solo.
+
+        Inside an ``obs.trace.collect`` one ``sched.dst`` span covers the
+        dispatch (nothing is recorded outside one): ``searches`` counts the
+        subset searches it ran, ``batched`` those that ran in a batched
+        dispatch (``merged_dst``'s increment)."""
+        with trace.span(None, None, "sched.dst", searches=0, batched=0) as sp:
+            self._dispatch_dst_groups(jobs, sp["attrs"])
+
+    def _dispatch_dst_groups(self, jobs: List[SubStratJob], counts: dict) -> None:
         groups: Dict[object, List[SubStratJob]] = {}
         solo: List[SubStratJob] = []
         for job in jobs:
@@ -574,10 +590,7 @@ class Scheduler:
                 groups.setdefault(bkey, []).append(job)
 
         for job in solo:
-            try:
-                self._dst(job)
-            except Exception as e:   # noqa: BLE001 — isolate job failures
-                self._fail(job, e)
+            counts["searches"] += self._dst(job)
 
         for bkey, group in groups.items():
             # duplicate submissions (same cache key) share one search slot
@@ -591,12 +604,10 @@ class Scheduler:
                     seen_keys.add(job.cache_key)
                     reps.append(job)
             if len(reps) == 1:
-                try:
-                    self._dst(reps[0])
-                except Exception as e:   # noqa: BLE001
-                    self._fail(reps[0], e)
+                counts["searches"] += self._dst(reps[0])
             else:
                 strategy, opts, n, m = bkey[0], bkey[1], bkey[2], bkey[3]
+                counts["searches"] += len(reps)
                 t0 = time.perf_counter()
                 try:
                     subsets = run_strategy_batch(
@@ -613,15 +624,13 @@ class Scheduler:
                     subsets = []
                 else:
                     self.merged_dst += len(reps)
+                    counts["batched"] += len(reps)
                 share = (time.perf_counter() - t0) / max(len(subsets), 1)
                 for job, subset in zip(reps, subsets):
                     self._record_subset(job, subset, share)
-            for job in followers:   # their rep just populated the cache
-                if not self._reprobe(job):
-                    try:                      # rep failed / uncacheable
-                        self._dst(job)
-                    except Exception as e:   # noqa: BLE001
-                        self._fail(job, e)
+            for job in followers:   # their rep just populated the cache;
+                # a failed or uncacheable rep leaves them a solo search
+                counts["searches"] += self._dst(job)
 
     # -- AutoML phases ------------------------------------------------------
 
@@ -859,6 +868,20 @@ class Scheduler:
             self._run_merged(group, cohorts, eval_fn)
 
     def _dispatch_rungs(self, ready: List[SubStratJob]) -> None:
+        """Evaluate the ready jobs' current rungs: megabatches, lockstep
+        merges and solo rungs.
+
+        Inside an ``obs.trace.collect`` one ``sched.rungs`` span covers the
+        dispatch (nothing is recorded outside one): ``jobs``, the ready
+        jobs; ``dispatches``, the dispatches planned for them (merged groups
+        plus solo rungs; a failed pack's solo re-runs are not counted);
+        ``padded_flops`` and ``useful_flops``, its megabatches' analytic
+        FLOPs (``torchprof.pack_flops``)."""
+        with trace.span(None, None, "sched.rungs", jobs=len(ready), dispatches=0,
+                        padded_flops=0.0, useful_flops=0.0) as sp:
+            self._dispatch_rung_groups(ready, sp["attrs"])
+
+    def _dispatch_rung_groups(self, ready: List[SubStratJob], counts: dict) -> None:
         from ..automl.batched import eval_rung_cohorts, eval_trial_megabatch
 
         mega: List[SubStratJob] = []
@@ -880,6 +903,7 @@ class Scheduler:
             groups, singles = self._plan_bucket(bucket)
             merged.extend(groups)
             solo.extend(singles)
+        counts["dispatches"] += len(solo) + len(merged)
 
         for job in solo:
             t0 = time.perf_counter()
@@ -907,12 +931,15 @@ class Scheduler:
             metas = [CohortMeta(tc.shape, tc.trial_steps) for tc in cohorts]
             groups = pack_megabatches(metas, self.waste_budget,
                                       same_shape_only=not self.hetero_merge)
+            counts["dispatches"] += len(groups)
             for gidx in groups:
                 gmetas = [metas[i] for i in gidx]
                 self.m_pack_waste.set(merge_waste(gmetas))
                 padded, useful = torchprof.pack_flops(gmetas)
                 self.m_padded_flops.inc(padded)
                 self.m_useful_flops.inc(useful)
+                counts["padded_flops"] += padded
+                counts["useful_flops"] += useful
             self._eval_groups(
                 [([mega[i] for i in gidx], [cohorts[i] for i in gidx])
                  for gidx in groups],
