@@ -9,7 +9,11 @@ Phases, in order; any failure exits non-zero and prints no result:
 1. The card (``nvidia-smi`` name and power limit), torch and CUDA versions,
    the build of the CUDA kernels from ``src/repro_torch/csrc``, and a probe of
    the machine (host loop speed, wall time per small launch, device copy rate,
-   clocks) so that runs on different machines can be told apart.
+   clocks) so that runs on different machines can be told apart.  Then
+   ``factorize`` of D1's training table on the card against the same
+   function on the CPU and against the per-column NumPy loop
+   (``np.unique``, ``np.quantile``): exact; the card's median time over 5
+   calls.
 2. The masked-histogram kernel against its plain version, through both of
    its entries.  The gathered entry, which the main path calls, at paper
    dataset D1 (100 candidates of 322 rows x 23 columns gathered from the
@@ -494,6 +498,49 @@ FA_TIMED = (("zamba2-2.7b", 4, 1024, 32, 32, 80),
             ("qwen2-moe-a2.7b", 4, 1024, 16, 16, 128),
             ("phi-3-vision-4.2b", 4, 1024, 32, 32, 96),       # 128-column tile, 1/4 padding
             ("kimi-k2-1t-a32b", 4, 1024, 64, 8, 112))         # 128-column tile, 1/8 padding
+
+
+def numpy_factorize(X, y, max_bins: int = 256, categorical_threshold: int = 64):
+    """The per-column NumPy loop ``factorize`` replaces (``np.unique``,
+    ``np.quantile``, ``np.searchsorted``): ``(codes, n_bins)``."""
+    import numpy as np
+    cols = [X[:, j] for j in range(X.shape[1])] + [y]
+    codes = np.empty((X.shape[0], len(cols)), np.int32)
+    n_bins = np.empty(len(cols), np.int32)
+    for j, col in enumerate(cols):
+        colf = np.asarray(col, np.float64)
+        uniq, inv = np.unique(colf, return_inverse=True)
+        if len(uniq) <= max(categorical_threshold, 2) or j == len(cols) - 1:
+            codes[:, j], n_bins[j] = inv, len(uniq)
+        else:
+            qs = np.quantile(colf, np.linspace(0.0, 1.0, max_bins + 1)[1:-1])
+            ub, ib = np.unique(np.searchsorted(qs, colf, side="right"), return_inverse=True)
+            codes[:, j], n_bins[j] = ib, len(ub)
+    return codes, n_bins
+
+
+def check_factorize(torch, dev, factorize, X, y) -> float:
+    """``factorize`` of one table on the card against the same function on
+    the CPU and against the NumPy loop, exact; returns the card's median ms
+    over 5 calls (each ends with its one read of ``n_bins``)."""
+    import numpy as np
+    card, cpu = factorize(X, y, device=dev), factorize(X, y, device="cpu")
+    ref_codes, ref_bins = numpy_factorize(X, y)
+    for name, a, b in (("codes", card.codes, cpu.codes), ("values", card.values, cpu.values),
+                       ("n_bins", card.n_bins, cpu.n_bins)):
+        if not torch.equal(a.cpu(), b):
+            fail(f"factorize: card {name} differ from the CPU's")
+    if not (np.array_equal(card.codes.cpu().numpy(), ref_codes)
+            and np.array_equal(card.n_bins.cpu().numpy(), ref_bins)):
+        fail("factorize: card codes differ from the NumPy loop's")
+    if (card.max_bins, card.target_col) != (max(int(ref_bins.max()), 2), X.shape[1]):
+        fail("factorize: max_bins or target_col differ from the NumPy loop's")
+    ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        factorize(X, y, device=dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ms))
 
 
 def phase7_flash_attention(torch, dev) -> dict:
@@ -3040,6 +3087,9 @@ def main() -> None:
     X_tr, y_tr, X_te, y_te = train_test_split(X, y)
     coded = factorize(X_tr, y_tr, device=dev)
     N, M = coded.codes.shape
+    fz_ms = check_factorize(torch, dev, factorize, X_tr, y_tr)
+    print(f"factorize D1 {X_tr.shape}: card = CPU = NumPy loop, exact; "
+          f"card median {fz_ms:.3f} ms over 5 calls")
     B = coded.max_bins
     cfg = GenDSTConfig()
     n, m = round(N ** 0.5), round(0.25 * M)

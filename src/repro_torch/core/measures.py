@@ -3,9 +3,10 @@
 The port of the JAX package's ``core/measures.py``; its module docstring is
 the one statement of the layout conventions (``codes`` (N, M) int32,
 ``n_bins`` (M,), histogram width ``B``, padding bins exactly zero), and this
-module keeps them.  ``factorize`` runs the same numpy code, so its codes,
-``n_bins``, ``max_bins`` and ``target_col`` are bit-identical to the
-reference's.
+module keeps them.  ``factorize`` codes every column at once on the
+table's device (one float64 sort, numpy's unique and linear-quantile
+arithmetic reproduced step by step), so its codes, ``n_bins``, ``max_bins``
+and ``target_col`` are bit-identical to the reference's per-column NumPy.
 
 Codes and row indices are stored as int32 (the kernels take int32); they
 are cast to int64 only where torch indexes or scatters with them.
@@ -68,6 +69,46 @@ class CodedDataset(NamedTuple):
                              n_bins=self.n_bins.to(device))
 
 
+def _quantile_positions(N: int, max_bins: int):
+    """Where ``np.quantile(col, np.linspace(0, 1, max_bins + 1)[1:-1])``
+    (method "linear") reads a sorted column of ``N`` values: the lower and
+    upper index and the weight of each edge.  They depend on ``N`` alone,
+    so they are computed here in float64 exactly as numpy's ``_quantile``
+    computes them (``_compute_virtual_index``, ``_get_indexes`` with its
+    clipping, ``_get_gamma``: an index at or past the last reads it twice,
+    with the weight taken from the clipped index)."""
+    q = np.linspace(0.0, 1.0, max_bins + 1)[1:-1]
+    virtual = (N - 1) * q
+    lo = np.floor(virtual)
+    hi = lo + 1
+    above = virtual >= N - 1
+    lo[above] = -1
+    hi[above] = -1
+    lo, hi = lo.astype(np.intp), hi.astype(np.intp)
+    gamma = np.asarray(virtual - lo, dtype=virtual.dtype)
+    return lo % N, hi % N, gamma
+
+
+def _lerp(a: torch.Tensor, b: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """numpy's ``_lerp``, one rounded operation at a time (never a fused
+    multiply-add): ``a + (b - a) * t``, and ``b - (b - a) * (1 - t)`` where
+    ``t >= 0.5``."""
+    d = b - a
+    return torch.where(t >= 0.5, b - d * (1.0 - t), a + d * t)
+
+
+# dtypes that copy to a card as they are; any other is cast to float64 first
+_COPYABLE = {np.dtype(d) for d in ("float64", "float32", "float16", "int64", "int32",
+                                   "int16", "int8", "uint8", "bool")}
+
+
+def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype not in _COPYABLE:
+        a = a.astype(np.float64)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
 def factorize(
     X: np.ndarray,
     y: Optional[np.ndarray] = None,
@@ -83,44 +124,68 @@ def factorize(
     binned to ``max_bins`` codes.  The target column ``y`` (if given) is
     appended as the last column and is always treated as categorical.
 
-    Records two spans (``obs/trace``): ``factorize.host``, the per-column
-    NumPy loop, and ``factorize.copy``, the three copies to ``device``."""
+    All columns at once on ``device``, with the reference's per-column NumPy
+    results bit for bit: one float64 sort of the (M, N) column matrix gives
+    ``np.unique``'s inverse (ranks among the distinct values, NaNs one last
+    value) and ``np.quantile``'s linear edges (``_quantile_positions``,
+    ``_lerp``; a column holding a NaN has NaN edges, so its NaNs take the
+    last bin and every other value the first).  A column holding +-inf can
+    get NaN edges among finite ones, where numpy's binary search depends on
+    the order of the values searched; such a binned column is not matched.
+
+    Records three spans (``obs/trace``): ``factorize.host``, the edges'
+    positions computed on the host from ``N``; ``factorize.copy``, the
+    copies of ``X``, ``y`` and those positions to ``device``; and
+    ``factorize.device``, the sort, the edges and the codes, up to the one
+    read of ``n_bins`` that waits for them."""
     dev = resolve_device(device)
     with _trace.span(None, None, "factorize.host"):
         X = np.asarray(X)
-        cols = [np.asarray(X[:, j]) for j in range(X.shape[1])]
-        if y is not None:
-            cols.append(np.asarray(y))
-        N = X.shape[0]
-        codes = np.empty((N, len(cols)), dtype=np.int32)
-        n_bins = np.empty((len(cols),), dtype=np.int32)
-        values = np.empty((N, len(cols)), dtype=np.float32)
-        for j, col in enumerate(cols):
-            colf = col.astype(np.float64)
-            values[:, j] = colf.astype(np.float32)
-            uniq, inv = np.unique(colf, return_inverse=True)
-            if len(uniq) <= max(categorical_threshold, 2) or (
-                y is not None and j == len(cols) - 1
-            ):
-                codes[:, j] = inv.astype(np.int32)
-                n_bins[j] = len(uniq)
-            else:
-                # quantile binning to at most max_bins codes
-                qs = np.quantile(colf, np.linspace(0.0, 1.0, max_bins + 1)[1:-1])
-                binned = np.searchsorted(qs, colf, side="right")
-                # re-densify (some quantile bins may be empty)
-                uniq_b, inv_b = np.unique(binned, return_inverse=True)
-                codes[:, j] = inv_b.astype(np.int32)
-                n_bins[j] = len(uniq_b)
-        B = int(max(int(n_bins.max()), 2))
+        N, d = X.shape
+        lo, hi, gamma = _quantile_positions(N, max_bins)
     with _trace.span(None, None, "factorize.copy"):
-        return CodedDataset(
-            codes=torch.from_numpy(codes).to(dev),
-            values=torch.from_numpy(values).to(dev),
-            n_bins=torch.from_numpy(n_bins).to(dev),
-            target_col=len(cols) - 1 if y is not None else X.shape[1] - 1,
-            max_bins=B,
-        )
+        # the table, and where the edges read the sorted columns
+        Xd = _to_device(X, dev)
+        yd = None if y is None else _to_device(y, dev)
+        at = torch.from_numpy(np.stack([lo, hi, gamma])).to(dev)
+    with _trace.span(None, None, "factorize.device"):
+        M = d + (yd is not None)
+        cols = torch.empty((M, N), dtype=torch.float64, device=dev)
+        cols[:d] = Xd.T
+        if yd is not None:
+            cols[d] = yd.reshape(N)
+        values = cols.T.to(torch.float32, memory_format=torch.contiguous_format)
+
+        srt, order = torch.sort(cols, dim=1)
+        nan = srt.isnan()
+        # a new distinct value wherever the sorted value differs from the one
+        # before it, by value (-0.0 == 0.0), NaNs counting as one value
+        new = torch.ones_like(nan)
+        new[:, 1:] = (srt[:, 1:] != srt[:, :-1]) & ~(nan[:, 1:] & nan[:, :-1])
+        rank = torch.cumsum(new, dim=1) - 1
+        distinct = rank[:, -1] + 1
+        exact = torch.empty_like(order).scatter_(1, order, rank)
+
+        lo, hi = at[:2].long()
+        edges = _lerp(srt[:, lo], srt[:, hi], at[2])
+        binned = torch.searchsorted(edges, cols, right=True)
+        has_nan = nan[:, -1:]
+        binned = torch.where(has_nan, torch.where(cols.isnan(), edges.shape[1], 0), binned)
+        # re-densify: the rank of each bin among the column's occupied bins
+        occupied = torch.zeros((M, max_bins), dtype=torch.int64, device=dev)
+        occupied.scatter_(1, binned, 1)
+        dense = torch.cumsum(occupied, dim=1) - 1
+        occupied_n = dense[:, -1] + 1
+
+        keep = distinct <= max(categorical_threshold, 2)
+        if y is not None:
+            keep[-1:].fill_(True)
+        codes = torch.where(keep[:, None], exact, dense.gather(1, binned))
+        codes = codes.T.to(torch.int32, memory_format=torch.contiguous_format)
+        n_bins = torch.where(keep, distinct, occupied_n).to(torch.int32)
+        B = max(int(n_bins.cpu().max()), 2)
+    return CodedDataset(codes=codes, values=values, n_bins=n_bins,
+                        target_col=M - 1 if y is not None else d - 1, max_bins=B)
 
 
 def host_codes(coded: CodedDataset) -> tuple:

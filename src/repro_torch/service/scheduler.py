@@ -416,18 +416,16 @@ class Scheduler:
     def _factorize(self, job: SubStratJob) -> None:
         t0 = time.perf_counter()
         w0 = time.time()
-        # the fingerprint and the meta-features read the codes on the host:
-        # factorize there (numpy, as ``factorize`` always is) and move the
-        # table to the device after; a table submitted already coded on a
-        # card costs one packed device-to-host copy of its codes
+        # factorize on the scheduler's device; the fingerprint and the
+        # meta-features read the codes on the host, one packed
+        # device-to-host copy of them (free on the CPU)
         if job.coded is None:
-            host = factorize(job.X, job.y, device="cpu")
-            job.coded = host.to(self.device)
+            job.coded = factorize(job.X, job.y, device=self.device)
         else:
-            codes, n_bins = host_codes(job.coded)
-            host = job.coded._replace(codes=torch.from_numpy(codes),
-                                      n_bins=torch.from_numpy(n_bins))
             job.coded = job.coded.to(self.device)
+        codes, n_bins = host_codes(job.coded)
+        host = job.coded._replace(codes=torch.from_numpy(codes),
+                                  n_bins=torch.from_numpy(n_bins))
         job.fingerprint = dataset_fingerprint(host)
         if self.warm_start:
             # register the dataset's meta-feature vector (host work on the

@@ -12,6 +12,7 @@ import torch
 
 import repro.core.measures as J
 import repro_torch.core.measures as T
+from _factorize_cases import CASES, tables
 from _torch_port import np_, t
 
 
@@ -121,3 +122,17 @@ def test_values_measures(coded, name):
         ref = float(fj(cj.values, jnp.asarray(rows[i]), jnp.asarray(masks[i])))
         np.testing.assert_allclose(batched[i], ref, rtol=1e-5, atol=1e-7)
     assert T.MEASURES["entropy"] is None
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_factorize_bit_identical_on_edge_tables(case):
+    """The batched factorize against the reference's per-column NumPy loop:
+    codes, values, n_bins, max_bins and target_col equal bit for bit."""
+    for X, y, kw in tables(case):
+        cj, ct = J.factorize(X, y, **kw), T.factorize(X, y, device="cpu", **kw)
+        np.testing.assert_array_equal(np_(ct.codes), np.asarray(cj.codes))
+        np.testing.assert_array_equal(np_(ct.values), np.asarray(cj.values))
+        np.testing.assert_array_equal(np_(ct.n_bins), np.asarray(cj.n_bins))
+        assert (ct.max_bins, ct.target_col) == (cj.max_bins, cj.target_col)
+        assert (ct.codes.dtype, ct.n_bins.dtype, ct.values.dtype) == (
+            torch.int32, torch.int32, torch.float32)

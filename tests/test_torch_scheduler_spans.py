@@ -7,6 +7,7 @@ nothing.  The port alone, on the CPU; no JAX.
 Tolerances: none (counts are equal; FLOPs are the counters' own floats).
 """
 import dataclasses
+import time
 
 import pytest
 
@@ -114,3 +115,35 @@ def test_outside_a_collect_nothing_is_recorded(fleet):
         ra, rb = srv.result(a), again.result(b)
         assert (ra.row_idx == rb.row_idx).all() and ra.dst_fitness == rb.dst_fitness
         assert ra.final.spec == rb.final.spec and ra.final.test_acc == rb.final.test_acc
+
+
+def test_the_factorize_span_covers_the_codes_and_the_fingerprint(fleet, monkeypatch):
+    """A served job's ``factorize`` span holds ``factorize``'s own spans and
+    the host reads of its codes: the fingerprint and the meta-features."""
+    import repro_torch.service.scheduler as sched_mod
+    calls = []
+
+    def timed(name, fn):
+        def wrapped(*args, **kwargs):
+            t0 = time.time()
+            out = fn(*args, **kwargs)
+            calls.append((name, t0, time.time()))
+            return out
+        return wrapped
+
+    for name in ("dataset_fingerprint", "meta_features"):
+        monkeypatch.setattr(sched_mod, name, timed(name, getattr(sched_mod, name)))
+    X, y, Xt, yt = fleet[0]
+    srv = SubStratServer(batch_dst=True, warm_start=True, device="cpu")
+    jid = srv.submit(X, y, plan=_plan(), seed=7, X_test=Xt, y_test=yt)
+    sink = []
+    with trace.collect(sink):
+        srv.run()
+    (fz,) = [s for s in srv.scheduler.jobs[jid].spans if s["name"] == "factorize"]
+    inner = [s for s in sink if s["name"].startswith("factorize.")]
+    assert [s["name"] for s in inner] == ["factorize.host", "factorize.copy", "factorize.device"]
+    assert sorted(n for n, _, _ in calls) == ["dataset_fingerprint", "meta_features"]
+    assert fz["t0"] <= inner[0]["t0"]
+    for _, t0, t1 in calls:
+        assert inner[-1]["t1"] <= t0 <= t1 <= fz["t1"]
+    assert fz["attrs"]["seconds"] >= sum(t1 - t0 for _, t0, t1 in calls)
