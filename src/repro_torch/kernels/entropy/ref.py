@@ -1,8 +1,9 @@
 """Plain PyTorch version of the masked histogram kernel, and the entropy of
 a histogram.
 
-The CPU path and, on the card, the oracle ``chip_smoke.py`` holds the CUDA
-kernel to.  Same semantics as the JAX package's ``kernels/entropy/ref.py``.
+The CPU path and, on the card, the oracle that
+``tests/test_torch_kernels_card.py`` holds the CUDA kernel to.  Same
+semantics as the JAX package's ``kernels/entropy/ref.py``.
 """
 from __future__ import annotations
 

@@ -1,9 +1,9 @@
 """Plain PyTorch version of the flash-attention kernel: GQA attention with an
 optional causal mask, float32 scores and softmax, output in q's dtype.
 
-The CPU path and, on the card, the oracle ``chip_smoke.py`` holds the CUDA
-kernel to.  Same semantics as the JAX package's
-``kernels/flash_attention/ref.py``.
+The CPU path and, on the card, the oracle that
+``tests/test_torch_kernels_card.py`` holds the CUDA kernel to.  Same
+semantics as the JAX package's ``kernels/flash_attention/ref.py``.
 """
 from __future__ import annotations
 

@@ -1,8 +1,9 @@
 """Plain PyTorch version of the SSD-scan kernel: the per-timestep recurrence.
 
-The CPU path and, on the card, the oracle ``chip_smoke.py`` holds the CUDA
-kernel to.  Same semantics as the JAX package's ``kernels/ssd_scan/ref.py``,
-and it also returns the final state, which prefill hands to decode.
+The CPU path and, on the card, the oracle that
+``tests/test_torch_kernels_card.py`` holds the CUDA kernel to.  Same
+semantics as the JAX package's ``kernels/ssd_scan/ref.py``, and it also
+returns the final state, which prefill hands to decode.
 
 ``ssd_scan_chunked_ref`` is the chunked state-passing form that the bfloat16
 CUDA body computes, as three plain passes (``ssd_chunk_states``,

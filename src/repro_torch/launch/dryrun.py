@@ -28,7 +28,8 @@ It computes nothing on any device: the fake tensors have no data, and the
 kernels (B3 ``repro_torch::flash_attention``, B4 ``repro_torch::ssd_scan``)
 give their outputs' shapes through their fake implementations.  It is no
 CPU fallback of anything: the same ``run_cell`` on a card's mesh
-(``chip_smoke.py`` phase 17) is held there against a real run of the cell.
+(``tests/test_torch_train_card.py``) is held there against a real run of
+the cell.
 
 Differences from the reference (ROADMAP): one ``trace_s`` where the
 reference reports ``lower_s`` and ``compile_s``; ``fits_80gb`` (an H100's
@@ -74,7 +75,7 @@ __all__ = ["PEAK_FLOPS", "HBM_BW", "NET_BW", "HBM_BYTES", "Cell", "build_cell", 
            "trace_device", "trace_cell", "estimate_cell", "fill_inputs_", "run_cell", "main"]
 
 # hardware model, per H100 SXM (NVIDIA's data sheet): dense bf16 tensor-core
-# rate and HBM3 rate, as chip_smoke.py uses them; 80 GB of HBM
+# rate and HBM3 rate, as chip_kernels.py uses them; 80 GB of HBM
 PEAK_FLOPS = 989e12
 HBM_BW = 3.35e12
 HBM_BYTES = 80e9

@@ -17,30 +17,10 @@ import types
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
-requires_cuda = pytest.mark.cuda
-
-
-def skip_without_cuda():
-    """Skip the calling test when no CUDA card is present (decided at run
-    time, never at import or collection)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the CUDA kernels cannot run on the CPU")
-
-
-def t(x, dtype=None, device="cpu") -> torch.Tensor:
-    """numpy/JAX array -> torch tensor."""
-    return torch.as_tensor(np.array(x), dtype=dtype, device=device)
-
-
-def np_(x) -> np.ndarray:
-    """torch tensor or JAX array -> numpy (bfloat16 as float32)."""
-    if isinstance(x, torch.Tensor):
-        x = x.detach().cpu()
-        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
-    return np.asarray(x)
+# the JAX-free helpers (tests/_card.py), kept importable from here
+from _card import np_, t  # noqa: F401
 
 
 def port_config(jcfg):

@@ -1,4 +1,5 @@
 """The port's batched cohort AutoML backend against the JAX package, on the CPU.
+Its rung on a card is ``tests/test_torch_tabular_card.py``'s.
 
 Tolerances:
 * masked losses within rel 1e-5, abs 1e-6 and masked fits within 1e-5 of the
@@ -41,12 +42,12 @@ import repro.automl.models as JM
 import repro_torch.automl.batched as TB
 import repro_torch.automl.engine as TE
 import repro_torch.automl.models as TM
-from _torch_port import np_, requires_cuda, skip_without_cuda
+from _port_cases import AUTOML_CFG, AUTOML_SEED, automl_table
+from _torch_port import np_
 from repro_torch.convert import params_from_numpy
 
-SEED = 25                 # 8 trials: all five families, MLP widths 128, 32, 128
-CFG = dict(n_trials=8, rungs=(4, 8), seed=SEED)
-N_ROWS = 300
+SEED = AUTOML_SEED
+CFG = AUTOML_CFG
 
 
 def _make(seed, N, d, C):
@@ -58,17 +59,7 @@ def _make(seed, N, d, C):
 
 @pytest.fixture(scope="module")
 def data():
-    rng = np.random.default_rng(0)
-    N = 360
-    y = rng.integers(0, 3, N)
-    X = np.column_stack([
-        y * 1.2 + rng.normal(0, 1.0, N),
-        -y * 0.8 + rng.normal(0, 1.0, N),
-        rng.normal(0, 1, N) * 3.0,
-        rng.integers(0, 4, N),
-        y * 0.3 + rng.normal(0, 2.0, N),
-    ]).astype(np.float32)
-    return X[:N_ROWS], y[:N_ROWS], X[N_ROWS:], y[N_ROWS:]
+    return automl_table()
 
 
 def _spec_tuple(s):
@@ -427,44 +418,3 @@ def test_plan_and_config_overrides_reach_both_passes(spy_backend):
     res = substrat(X, y, seed=0, config=dataclasses.replace(cfg, automl_backend="spy"),
                    device="cpu")
     assert len(spy_backend) == 3 and res.final.backend == "spy"
-
-
-# ---------------------------------------------------------------------------
-# on the card (skip here)
-# ---------------------------------------------------------------------------
-
-
-def _card_and_cpu_states(data):
-    X, y, _, _ = data
-    return {dev: TE.search_init(X, y, config=TE.AutoMLConfig(**CFG), device=dev)
-            for dev in ("cuda", "cpu")}
-
-
-@requires_cuda
-def test_batched_rung_on_card_matches_cpu(data):
-    skip_without_cuda()
-    states = _card_and_cpu_states(data)
-    outs = {}
-    for dev, st in states.items():
-        cohort, tids, epochs, _ = TE.search_cohort(st)
-        outs[dev] = TB.eval_rung_batched(cohort, tids, 0, epochs, st.ctx, st.out_of_budget)
-    _assert_scored_close(outs["cuda"], outs["cpu"], len(states["cpu"].ctx["y_val"]))
-    params = outs["cuda"][0][0][2]()
-    assert all(x.is_cuda for x in TM._leaves(params))
-
-
-@requires_cuda
-def test_batched_rung_has_no_host_sync_on_card(data):
-    skip_without_cuda()
-    st = _card_and_cpu_states(data)["cuda"]
-    cohort, tids, epochs, _ = TE.search_cohort(st)
-    d, c = st.ctx["X_tr"].shape[1], st.ctx["n_classes"]
-    trials, variants, subbatches, common = TB._rung_inputs(cohort, tids, 0, epochs, st.ctx)
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        evaluated = TB._run_subbatches(subbatches, common, c, d, epochs)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    results = TB._unpack_results(evaluated, trials, variants, False)
-    assert sorted(results) == list(range(len(cohort)))

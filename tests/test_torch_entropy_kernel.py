@@ -2,18 +2,16 @@
 
 On the CPU the port's ops run its plain version; it is held to the
 reference's ``masked_histogram_ref`` and to its Pallas kernel in interpret
-mode.  The CUDA leg compares the hand-written kernel with the plain version
-and skips without a card.
+mode.  The CUDA kernel against the plain version is
+``tests/test_torch_kernels_card.py``'s (no JAX there, so it runs on a card).
 
 The gathered entry (``population_histogram_rows``: the row gather done in
 the kernel) is held to the reference's ``population_histogram`` on
-``codes[rows]``; on the card, both entries to their plain versions.
+``codes[rows]``.
 
 Tolerances: 0/1 weights bit-identical; fractional weights rtol = atol =
 1e-5 (float32 sums in another order); entropies 1e-6 absolute.
 """
-from pathlib import Path
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,28 +25,14 @@ from repro_torch.kernels.entropy.kernel import tile_for
 from repro_torch.kernels.entropy.ops import (
     column_entropy_masked, masked_histogram, population_histogram, population_histogram_rows,
 )
-from repro_torch.kernels.entropy.ref import masked_histogram_ref
-from _torch_port import np_, requires_cuda, skip_without_cuda, t
-
-# the reference's padding edges (tests/test_kernels.py): rows shorter than a
-# tile, a ragged column tile, and bins beyond every code
-PADDING_EDGE_SHAPES = [
-    (5, 3, 8, None),
-    (300, 13, 16, None),
-    (200, 4, 64, 11),
-    (7, 9, 32, 5),
-]
-
-
-def _case(N, M, B, code_max, seed):
-    rng = np.random.default_rng(seed)
-    codes = rng.integers(0, B if code_max is None else code_max, (N, M)).astype(np.int32)
-    return codes, rng.random(N).astype(np.float32), (rng.random(N) < 0.5).astype(np.float32)
+from _port_cases import (GATHERED_SHAPES, PADDING_EDGE_SHAPES, gathered_case, hist_case,
+                         strided)
+from _torch_port import np_, t
 
 
 @pytest.mark.parametrize("N,M,B,code_max", PADDING_EDGE_SHAPES)
 def test_plain_histogram_matches_reference(N, M, B, code_max):
-    codes, w_frac, w_01 = _case(N, M, B, code_max, seed=N * 7 + M)
+    codes, w_frac, w_01 = hist_case(N, M, B, code_max, seed=N * 7 + M)
     for w in (w_01, np.ones(N, np.float32)):
         h = np_(masked_histogram(t(codes), t(w), B))
         np.testing.assert_array_equal(h, np.asarray(j_hist_ref(jnp.asarray(codes), jnp.asarray(w), B)))
@@ -66,7 +50,7 @@ def test_plain_histogram_matches_reference(N, M, B, code_max):
 
 
 def test_column_entropy_masked_matches_reference():
-    codes, w_frac, w_01 = _case(300, 5, 8, None, seed=3)
+    codes, w_frac, w_01 = hist_case(300, 5, 8, None, seed=3)
     for w in (w_01, w_frac):
         ref = j_entropy_from_hist(j_hist_ref(jnp.asarray(codes), jnp.asarray(w), 8))
         np.testing.assert_allclose(np_(column_entropy_masked(t(codes), t(w), 8)),
@@ -85,40 +69,9 @@ def test_population_histogram_folds_like_reference(P, n, M, B):
                                              interpret=True)))
 
 
-@requires_cuda
-@pytest.mark.parametrize("N,M,B,code_max", PADDING_EDGE_SHAPES + [(322, 2300, 256, None)])
-def test_cuda_histogram_matches_plain(N, M, B, code_max):
-    skip_without_cuda()
-    codes, w_frac, w_01 = _case(N, M, B, code_max, seed=N + M)
-    c = t(codes, device="cuda")
-    for w in (w_01, np.ones(N, np.float32)):
-        wt = t(w, device="cuda")
-        assert torch.equal(masked_histogram(c, wt, B), masked_histogram_ref(c, wt, B))
-    wt = t(w_frac, device="cuda")
-    torch.testing.assert_close(masked_histogram(c, wt, B), masked_histogram_ref(c, wt, B),
-                               rtol=1e-5, atol=1e-5)
-
-
-# (P, n, N, M, B, code_max): ragged P, M and B no multiple of 4, padding bins,
-# one row, one column
-GATHERED_SHAPES = [
-    (4, 9, 30, 3, 8, None),
-    (7, 20, 50, 5, 30, 11),
-    (13, 6, 10, 23, 7, None),
-    (1, 1, 1, 1, 1, None),
-    (3, 40, 64, 33, 13, 5),
-]
-
-
-def _gathered_case(P, n, N, M, B, code_max, seed):
-    rng = np.random.default_rng(seed)
-    codes = rng.integers(0, B if code_max is None else code_max, (N, M)).astype(np.int32)
-    return codes, rng.integers(0, N, (P, n)).astype(np.int32)
-
-
 @pytest.mark.parametrize("P,n,N,M,B,code_max", GATHERED_SHAPES)
 def test_gathered_histogram_matches_reference(P, n, N, M, B, code_max):
-    codes, rows = _gathered_case(P, n, N, M, B, code_max, seed=P * 17 + M)
+    codes, rows = gathered_case(P, n, N, M, B, code_max, seed=P * 17 + M)
     h = np_(population_histogram_rows(t(codes), t(rows), B))
     assert h.shape == (P, M, B)
     ref = np.asarray(j_population_histogram(jnp.asarray(codes[rows]), B))
@@ -129,7 +82,7 @@ def test_gathered_histogram_matches_reference(P, n, N, M, B, code_max):
 
 
 def test_gathered_histogram_matches_pallas_interpret():
-    codes, rows = _gathered_case(5, 12, 40, 6, 16, None, seed=5)
+    codes, rows = gathered_case(5, 12, 40, 6, 16, None, seed=5)
     h = np_(population_histogram_rows(t(codes), t(rows), 16))
     np.testing.assert_array_equal(
         h, np.asarray(j_population_histogram(jnp.asarray(codes[rows]), 16, backend="pallas",
@@ -137,70 +90,29 @@ def test_gathered_histogram_matches_pallas_interpret():
 
 
 def test_gathered_histogram_takes_int64_rows_on_the_cpu():
-    codes, rows = _gathered_case(6, 10, 25, 4, 8, None, seed=8)
+    codes, rows = gathered_case(6, 10, 25, 4, 8, None, seed=8)
     np.testing.assert_array_equal(np_(population_histogram_rows(t(codes), t(rows), 8)),
                                   np_(population_histogram_rows(t(codes), t(rows.astype(np.int64)),
                                                                 8)))
 
 
-def _strided(x):
-    """``x`` as a view that is not contiguous, holding the same values."""
-    return torch.stack([x, x], dim=-1)[..., 0]
-
-
-@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=requires_cuda)])
+# the card's case is tests/test_torch_kernels_card.py's
+@pytest.mark.parametrize("device", ["cpu"])
 def test_gathered_histogram_takes_int64_and_strided_inputs(device):
-    """The op takes on the card what its plain version takes on the CPU:
-    int64 rows, and codes and rows that are strided views."""
-    if device == "cuda":
-        skip_without_cuda()
-    codes, rows = _gathered_case(6, 10, 25, 4, 8, None, seed=8)
+    """The op takes int64 rows, and codes and rows that are strided views."""
+    codes, rows = gathered_case(6, 10, 25, 4, 8, None, seed=8)
     c, r = t(codes, device=device), t(rows, device=device)
     want = population_histogram_rows(c, r, 8)
-    for c_in, r_in in ((c, r.long()), (_strided(c), r), (c, _strided(r)),
-                       (_strided(c), _strided(r.long()))):
+    for c_in, r_in in ((c, r.long()), (strided(c), r), (c, strided(r)),
+                       (strided(c), strided(r.long()))):
         assert torch.equal(population_histogram_rows(c_in, r_in, 8), want)
 
 
 def test_gathered_histogram_raises_on_a_row_outside_the_table_on_the_cpu():
-    codes, rows = _gathered_case(3, 5, 25, 4, 8, None, seed=3)
+    codes, rows = gathered_case(3, 5, 25, 4, 8, None, seed=3)
     rows[1, 2] = 25
     with pytest.raises(IndexError):
         population_histogram_rows(t(codes), t(rows), 8)
-
-
-# run in a process of its own: the kernel's trap leaves that process's CUDA
-# context unusable
-_BAD_ROW_SCRIPT = """
-import torch
-from repro_torch.kernels.entropy.ops import population_histogram_rows
-codes = torch.zeros((10, 3), dtype=torch.int32, device="cuda")
-rows = torch.tensor([[0, 10]], dtype=torch.int32, device="cuda")
-try:
-    population_histogram_rows(codes, rows, 4)
-    torch.cuda.synchronize()
-except RuntimeError:
-    print("raised")
-try:
-    torch.ones(1, device="cuda").sum().item()
-except RuntimeError:
-    print("context unusable")
-"""
-
-
-@requires_cuda
-def test_cuda_gathered_histogram_traps_on_a_row_outside_the_table():
-    """The documented behaviour of a bad index on the card: an error at the
-    next synchronise, and a CUDA context that stays unusable."""
-    skip_without_cuda()
-    import os
-    import subprocess
-    import sys
-    src = str(Path(__file__).resolve().parents[1] / "src")
-    env = {**os.environ, "PYTHONPATH": src + os.pathsep + os.environ.get("PYTHONPATH", "")}
-    out = subprocess.run([sys.executable, "-c", _BAD_ROW_SCRIPT], env=env, capture_output=True,
-                         text=True, timeout=600).stdout.split()
-    assert "raised" in out and "unusable" in out
 
 
 @pytest.mark.parametrize("bins", [1, 8, 256, 5000, 20000])
@@ -219,18 +131,3 @@ def test_tile_fits_shared_memory(bins, weighted):
 def test_tile_refuses_bins_beyond_shared_memory(weighted):
     with pytest.raises(ValueError, match="does not fit"):
         tile_for(60000, weighted)
-
-
-@requires_cuda
-@pytest.mark.parametrize("P,n,N,M,B,code_max",
-                         GATHERED_SHAPES + [(100, 322, 2000, 23, 256, None),
-                                            (37, 322, 2000, 23, 256, 40),
-                                            (2, 10, 20, 4, 20000, 300)])
-def test_cuda_gathered_histogram_matches_plain(P, n, N, M, B, code_max):
-    skip_without_cuda()
-    codes, rows = _gathered_case(P, n, N, M, B, code_max, seed=P + n)
-    c, r = t(codes, device="cuda"), t(rows, device="cuda")
-    h = population_histogram_rows(c, r, B)
-    flat = c[r.long()].permute(1, 0, 2).reshape(n, P * M)
-    plain = masked_histogram_ref(flat, torch.ones(n, device="cuda"), B).reshape(P, M, B)
-    assert torch.equal(h, plain)

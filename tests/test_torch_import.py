@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import requires_cuda, skip_without_cuda
+from _port_cases import run_every_op
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 
@@ -143,37 +143,9 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         fused_delta_fitness_cuda(counts, z, z, torch.zeros(3), z.bool(), torch.zeros(1))
 
 
-def _run_every_op(device):
-    """One call of each kernel's public op on ``device``."""
-    from repro_torch.kernels.entropy.ops import population_histogram
-    from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.gen_dst.ops import fused_delta_fitness
-    from repro_torch.kernels.ssd_scan.ops import ssd_scan
-    sub = torch.randint(0, 8, (3, 5, 2), dtype=torch.int32, device=device)
-    counts = population_histogram(sub, 8)
-    z = torch.zeros((3, 2), dtype=torch.int32, device=device)
-    fused_delta_fitness(counts, z, z, torch.zeros(3, device=device),
-                        torch.ones((3, 2), dtype=torch.bool, device=device), 0.5)
-    q = torch.randn((1, 4, 2, 8), device=device)
-    flash_attention(q, q, q)
-    bm = torch.randn((1, 4, 1, 8), device=device)
-    ssd_scan(q, torch.rand((1, 4, 2), device=device), -torch.rand(2, device=device), bm, bm)
-
-
 def test_ops_dispatch_on_device_and_count_no_cpu_launch():
     from repro_torch import kernels
     kernels.reset_launch_counts()
-    _run_every_op("cpu")
+    run_every_op("cpu")
     assert kernels.launch_counts() == {"masked_histogram": 0, "fused_delta_fitness": 0,
                                        "flash_attention": 0, "ssd_scan": 0}
-
-
-@requires_cuda
-def test_cuda_kernels_launch_and_count():
-    skip_without_cuda()
-    from repro_torch import kernels
-    kernels.reset_launch_counts()
-    _run_every_op("cuda")
-    torch.cuda.synchronize()
-    assert kernels.launch_counts() == {"masked_histogram": 1, "fused_delta_fitness": 1,
-                                       "flash_attention": 1, "ssd_scan": 1}

@@ -32,7 +32,9 @@ from repro.models.config import ModelConfig as JModelConfig
 from repro_torch import configs
 from repro_torch.launch import serve
 from repro_torch.models import encdec, lm
-from _torch_port import np_, port_config, port_lm_params, requires_cuda, skip_without_cuda
+from _port_cases import (SMOKE_ARCHS, batch_n_img, lm_batch, lm_tokens, n_img_of, serve_port,
+                         torch_batch)
+from _torch_port import np_, port_config, port_lm_params
 
 V = 64
 # tests/test_serve.py's CASES and its vlm case (float32, no remat)
@@ -52,29 +54,6 @@ SERVE_CASES = [
                  head_dim=8, d_ff=64, vocab_size=V, n_img_tokens=4, remat=False,
                  dtype="float32"),
 ]
-# dense, ssm, hybrid; moe, vlm; the other dense archs (ROADMAP C's open check)
-SMOKE_ARCHS = ["qwen3-8b", "mamba2-130m", "zamba2-2.7b",
-               "qwen2-moe-a2.7b", "kimi-k2-1t-a32b", "phi-3-vision-4.2b",
-               "gemma-2b", "granite-3-2b", "llama3-405b"]
-
-
-def _tokens(B, S, vocab, seed=1):
-    return np.random.default_rng(seed).integers(0, vocab, (B, S)).astype(np.int32)
-
-
-def _batch(cfg, B, S, seed=1):
-    """S positions of numpy inputs: tokens, and for vlm ``n_img_tokens``
-    patch embeddings (float32) before S - n_img text tokens."""
-    n_img = cfg.n_img_tokens if cfg.family == "vlm" else 0
-    batch = {"tokens": _tokens(B, S - n_img, cfg.vocab_size, seed)}
-    if n_img:
-        batch["patch_embeds"] = np.random.default_rng(seed + 1).normal(
-            0, 1, (B, n_img, cfg.d_model)).astype(np.float32)
-    return batch
-
-
-def _torch_batch(batch, device="cpu"):
-    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
 def _port(jcfg, seed=0):
@@ -88,22 +67,18 @@ def test_forward_matches_reference_pallas(arch):
     jcfg = dataclasses.replace(j_get_arch(arch).smoke, dtype="float32",
                                attn_impl="pallas_interpret", ssm_impl="pallas_interpret")
     jparams, cfg, params = _port(jcfg)
-    batch = _batch(cfg, 2, 128)                     # 128 positions: the Pallas path
+    batch = lm_batch(cfg, 2, 128)                     # 128 positions: the Pallas path
     S_out = batch["tokens"].shape[1]
     ref = np.asarray(jlm.forward(jparams, jax.tree.map(jnp.asarray, batch), jcfg))
-    out = lm.forward(params, _torch_batch(batch), cfg)
+    out = lm.forward(params, torch_batch(batch), cfg)
     assert out.shape == (2, S_out, jcfg.vocab_size) and out.dtype == torch.float32
     np.testing.assert_allclose(np_(out), ref, atol=2e-4, rtol=0)
-
-
-def _n_img(batch):
-    return batch["patch_embeds"].shape[1] if "patch_embeds" in batch else 0
 
 
 def _serve_reference(jparams, jcfg, batch, prompt):
     """Prefill the first ``prompt`` tokens (after the patches, for vlm), then
     decode the rest one by one at positions offset by the patches."""
-    toks, n_img = batch["tokens"], _n_img(batch)
+    toks, n_img = batch["tokens"], batch_n_img(batch)
     extra = {k: jnp.asarray(v) for k, v in batch.items() if k != "tokens"}
     prefill = jax.jit(lambda p, t: jlm.prefill(p, {"tokens": t, **extra}, jcfg,
                                                max_len=toks.shape[1] + n_img))
@@ -116,24 +91,12 @@ def _serve_reference(jparams, jcfg, batch, prompt):
     return np.asarray(jnp.stack(outs, axis=1)), cache
 
 
-def _serve_port(params, cfg, batch, prompt, device="cpu"):
-    batch = _torch_batch(batch, device)
-    toks, n_img = batch["tokens"], _n_img(batch)
-    logits, cache = lm.prefill(params, {**batch, "tokens": toks[:, :prompt]}, cfg,
-                               max_len=toks.shape[1] + n_img)
-    outs = [logits[:, 0]]
-    for t in range(prompt, toks.shape[1]):
-        lg, cache = lm.decode(params, cache, toks[:, t:t + 1], t + n_img, cfg)
-        outs.append(lg[:, 0])
-    return np_(torch.stack(outs, dim=1)), cache
-
-
 @pytest.mark.parametrize("jcfg", SERVE_CASES, ids=[c.name for c in SERVE_CASES])
 def test_prefill_decode_match_reference(jcfg):
     jparams, cfg, params = _port(jcfg)
-    batch = _batch(cfg, 2, 16 + _n_img_of(cfg))
+    batch = lm_batch(cfg, 2, 16 + n_img_of(cfg))
     ref, ref_cache = _serve_reference(jparams, jcfg, batch, prompt=8)
-    out, cache = _serve_port(params, cfg, batch, prompt=8)
+    out, cache = serve_port(params, cfg, batch, prompt=8)
     np.testing.assert_allclose(out, ref, atol=1e-4, rtol=0)
     ref_leaves, port_leaves = jax.tree.leaves(ref_cache), jax.tree.leaves(cache)
     assert len(ref_leaves) == len(port_leaves)
@@ -145,14 +108,10 @@ def test_prefill_decode_match_reference(jcfg):
 @pytest.mark.parametrize("jcfg", SERVE_CASES, ids=[c.name for c in SERVE_CASES])
 def test_decode_matches_forward(jcfg):
     _, cfg, params = _port(jcfg)
-    batch = _batch(cfg, 2, 16 + _n_img_of(cfg))
-    full = np_(lm.forward(params, _torch_batch(batch), cfg))
-    dec, _ = _serve_port(params, cfg, batch, prompt=8)
+    batch = lm_batch(cfg, 2, 16 + n_img_of(cfg))
+    full = np_(lm.forward(params, torch_batch(batch), cfg))
+    dec, _ = serve_port(params, cfg, batch, prompt=8)
     np.testing.assert_allclose(dec, full[:, 7:, :], atol=1e-2, rtol=1e-2)
-
-
-def _n_img_of(cfg):
-    return cfg.n_img_tokens if cfg.family == "vlm" else 0
 
 
 @pytest.mark.parametrize("arch", ["zamba2-2.7b", "qwen2-moe-a2.7b"])
@@ -163,7 +122,7 @@ def test_compute_dtype_copy_changes_no_logit(arch):
     so as each layer is drawn, gives every leaf that dtype; the MoE router
     and shared-expert gate stay float32."""
     _, cfg, params = _port(j_get_arch(arch).smoke)              # bf16 compute
-    toks = {"tokens": torch.as_tensor(_tokens(2, 24, cfg.vocab_size))}
+    toks = {"tokens": torch.as_tensor(lm_tokens(2, 24, cfg.vocab_size))}
     before = lm.forward(params, toks, cfg)
     lm.to_compute_dtype_(params, cfg)
     assert torch.equal(lm.forward(params, toks, cfg), before)
@@ -294,19 +253,3 @@ def test_serve_main_runs_moe_on_cpu(arch):
     assert res.ids.shape == (2, 4) and 0 <= int(res.ids.min()) and int(res.ids.max()) < 512
     assert torch.isfinite(res.prefill_logits).all() and torch.isfinite(res.last_logits).all()
     assert torch.equal(serve.main(argv).ids, res.ids)
-
-
-@requires_cuda
-@pytest.mark.parametrize("arch", SMOKE_ARCHS)
-def test_cuda_forward_and_serving_match_cpu(arch):
-    skip_without_cuda()
-    cfg = dataclasses.replace(configs.get_arch(arch).smoke, dtype=torch.float32)
-    if cfg.family == "moe":          # forward drops no token that decode keeps
-        cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.moe_top_k)
-    params = lm.init_params(torch.Generator().manual_seed(0), cfg)
-    batch = _batch(cfg, 2, 40 + _n_img_of(cfg))
-    ref = lm.forward(params, _torch_batch(batch), cfg)
-    out = lm.forward(params.to("cuda"), _torch_batch(batch, "cuda"), cfg)
-    assert (out.cpu() - ref).abs().max().item() <= 1e-4
-    dec, _ = _serve_port(params.to("cuda"), cfg, batch, prompt=32, device="cuda")
-    np.testing.assert_allclose(dec, np_(ref)[:, 31:, :], atol=1e-2, rtol=1e-2)

@@ -32,7 +32,6 @@ from repro_torch.core.measures import factorize as t_factorize
 from repro_torch.core.plan import execute, plan as t_plan
 from repro_torch.core.strategies import run_strategy_batch
 from repro_torch.core.substrat import SubStratConfig
-from repro_torch.data.tabular import PAPER_DATASETS, make_dataset, train_test_split
 from repro_torch.device import make_generator
 from repro_torch.service import (
     BudgetExceeded, DSTCache as TCache, DSTCacheEntry as TEntry, RateLimited,
@@ -44,6 +43,7 @@ from repro_torch.service.scheduler import (
     pack_megabatches as t_pack,
 )
 
+from _port_cases import fleet_tables
 from _torch_port import np_strategy_registered, t_np
 
 STRATEGY = "test_torch_service_np"
@@ -61,19 +61,9 @@ SUB = dict(n_trials=6, rungs=(5, 10), seed=6)
 FT = dict(n_trials=4, rungs=(10,), seed=6)
 
 
-def _table(name, seed, scale):
-    spec = dataclasses.replace(PAPER_DATASETS[name], seed=seed)
-    return train_test_split(*make_dataset(spec, scale=scale))
-
-
 @pytest.fixture(scope="module")
 def tables():
-    """The phase-12 fleet at a small size: a table A, two more of its spec
-    with other seeds, A again, a table of another shape; then a fifth of
-    A's spec for the warm start."""
-    A = _table("D3", 3, 0.1)
-    return [A, _table("D3", 11, 0.1), _table("D3", 12, 0.1), A, _table("D7", 7, 0.02),
-            _table("D3", 13, 0.1)]
+    return fleet_tables()
 
 
 # ---------------------------------------------------------------------------

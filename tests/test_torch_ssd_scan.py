@@ -5,9 +5,9 @@ recurrence, which also returns the final state); it is held to the
 reference's ``ssd_scan_ref``, its Pallas kernel in interpret mode, its
 model-layout op and the model's chunked form's final state.  The chunked
 plain version (the three passes the bfloat16 CUDA body runs) is held to the
-same references, so the algebra of the decomposition is tested here.  The CUDA leg
-compares the hand-written kernel with the plain version and skips without a
-card.
+same references, so the algebra of the decomposition is tested here.  The
+CUDA kernel against the plain version is ``tests/test_torch_kernels_card.py``'s
+(no JAX there, so it runs on a card).
 
 Tolerances (max-abs, as ``tests/test_ssd_kernel.py:35``): y 1e-3 in float32,
 5e-2 in bfloat16; the final state 1e-3 in float32.
@@ -27,9 +27,8 @@ from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.kernels.ssd_scan.ref import (ssd_chunk_states, ssd_scan_chunked_ref,
                                               ssd_scan_model_ref, ssd_scan_ref,
                                               ssd_state_passing)
-from _torch_port import np_, requires_cuda, skip_without_cuda
-
-TOL = {"float32": 1e-3, "bfloat16": 5e-2}
+from _port_cases import SSD_TOL, ssd_model_inputs
+from _torch_port import np_
 
 # (BH, S, P, N, Q, dtype): the reference's CASES
 HEAD_CASES = [
@@ -47,15 +46,6 @@ def _head_inputs(BH, S, P, N, seed):
             -rng.uniform(0.5, 4.0, (BH,)).astype(np.float32),
             rng.normal(0, 1, (BH, S, N)).astype(np.float32),
             rng.normal(0, 1, (BH, S, N)).astype(np.float32))
-
-
-def _model_inputs(B, S, H, P, G, N, seed):
-    rng = np.random.default_rng(seed)
-    return (rng.normal(0, 1, (B, S, H, P)).astype(np.float32),
-            rng.uniform(0.01, 0.2, (B, S, H)).astype(np.float32),
-            -rng.uniform(0.5, 4.0, (H,)).astype(np.float32),
-            rng.normal(0, 1, (B, S, G, N)).astype(np.float32),
-            rng.normal(0, 1, (B, S, G, N)).astype(np.float32))
 
 
 def _cast(arrays, dtype):
@@ -77,15 +67,15 @@ def test_plain_matches_reference_and_pallas(BH, S, P, N, Q, dtype):
     assert h.shape == (BH, P, N)
     y = np_(y)
     np.testing.assert_allclose(y, np.asarray(j_ssd_scan_ref(*jx), np.float32),
-                               atol=TOL[dtype], rtol=0)
+                               atol=SSD_TOL[dtype], rtol=0)
     np.testing.assert_allclose(y, np.asarray(ssd_scan_pallas(*jx, block_q=Q, interpret=True),
-                                             np.float32), atol=TOL[dtype], rtol=0)
+                                             np.float32), atol=SSD_TOL[dtype], rtol=0)
 
 
 @pytest.mark.parametrize("B,S,H,P,G,N,Q", [(2, 32, 4, 8, 1, 16, 8), (2, 64, 6, 8, 2, 8, 16),
                                            (1, 48, 4, 16, 4, 8, 16)])
 def test_model_layout_op_matches_reference_op(B, S, H, P, G, N, Q):
-    arrays = _model_inputs(B, S, H, P, G, N, seed=B * S + G)
+    arrays = ssd_model_inputs(B, S, H, P, G, N, seed=B * S + G)
     jx, tx = _cast(arrays, "float32")
     y, h = ssd_scan(*tx, block_q=Q)
     assert y.shape == (B, S, H, P) and h.shape == (B, H, P, N)
@@ -99,7 +89,7 @@ def test_final_state_matches_chunked_h_final(G):
     """The plain version's final state is ``_ssd_chunked``'s ``h_final``
     (``ssm.py:134``), which prefill hands to decode."""
     B, S, H, P, N = 2, 32, 4, 8, 16
-    jx, tx = _cast(_model_inputs(B, S, H, P, G, N, seed=3 + G), "float32")
+    jx, tx = _cast(ssd_model_inputs(B, S, H, P, G, N, seed=3 + G), "float32")
     cfg = JModelConfig("t", "ssm", n_layers=1, d_model=16, vocab_size=8, ssm_state=N,
                        ssm_head_dim=P, ssm_groups=G, ssm_chunk=8)
     y_ref, h_ref = _ssd_chunked(*jx, cfg)
@@ -111,7 +101,7 @@ def test_final_state_matches_chunked_h_final(G):
 def test_plain_takes_a_partial_last_chunk():
     """S = 37 is no multiple of any chunk: the plain version is per
     timestep, and the kernel runs the partial chunk by its length."""
-    jx, tx = _cast(_model_inputs(2, 37, 4, 8, 1, 8, seed=37), "float32")
+    jx, tx = _cast(ssd_model_inputs(2, 37, 4, 8, 1, 8, seed=37), "float32")
     y, _ = ssd_scan(*tx, block_q=16)
     np.testing.assert_allclose(np_(y), np.asarray(j_ssd_scan(*jx)), atol=1e-3, rtol=0)
 
@@ -144,7 +134,7 @@ CHUNKED_CASES = [
 def test_chunked_plain_matches_pallas_and_per_step(B, S, H, P, G, N, chunk):
     """The three passes give the reference's Pallas kernel's y (interpret
     mode, the same chunk) and the per-step recurrence's y and final state."""
-    jx, tx = _cast(_model_inputs(B, S, H, P, G, N, seed=S + chunk), "float32")
+    jx, tx = _cast(ssd_model_inputs(B, S, H, P, G, N, seed=S + chunk), "float32")
     y, h = ssd_scan_chunked_ref(*tx, chunk=chunk)
     assert y.shape == (B, S, H, P) and h.shape == (B, H, P, N)
     pallas = j_ssd_scan(*jx, use_pallas=True, interpret=True, block_q=chunk)
@@ -158,7 +148,7 @@ def test_chunked_plain_matches_pallas_and_per_step(B, S, H, P, G, N, chunk):
 @pytest.mark.parametrize("B,S,H,P,G,N,chunk", [(2, 37, 4, 8, 2, 16, 16), (1, 20, 4, 8, 1, 8, 32),
                                                (2, 100, 4, 8, 4, 8, 128), (1, 130, 2, 8, 1, 8, 64)])
 def test_chunked_plain_takes_partial_chunks(B, S, H, P, G, N, chunk):
-    jx, tx = _cast(_model_inputs(B, S, H, P, G, N, seed=S * G), "float32")
+    jx, tx = _cast(ssd_model_inputs(B, S, H, P, G, N, seed=S * G), "float32")
     y, h = ssd_scan_chunked_ref(*tx, chunk=chunk)
     np.testing.assert_allclose(np_(y), np.asarray(j_ssd_scan(*jx)), atol=1e-3, rtol=0)
     np.testing.assert_allclose(np_(h), np_(ssd_scan_model_ref(*tx)[1]), atol=1e-3, rtol=0)
@@ -169,7 +159,7 @@ def test_state_passing_gives_the_state_at_each_chunk_start():
     first c chunks, and the reference's ``_ssd_chunked`` ends in the same
     final state."""
     B, S, H, P, G, N, Q = 2, 48, 4, 8, 2, 8, 16
-    jx, tx = _cast(_model_inputs(B, S, H, P, G, N, seed=11), "float32")
+    jx, tx = _cast(ssd_model_inputs(B, S, H, P, G, N, seed=11), "float32")
     x, dt, a, bm, cm = tx
     states, decay = ssd_chunk_states(x, dt, a, bm, Q)
     entering, h = ssd_state_passing(states, decay)
@@ -187,25 +177,3 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     bm = torch.zeros((1, 4, 1, 8))
     with pytest.raises(ValueError, match="CUDA"):
         ssd_scan_cuda(x, torch.zeros((1, 4, 2)), torch.zeros(2), bm, bm)
-
-
-@requires_cuda
-@pytest.mark.parametrize("B,S,H,P,G,N,Q,dtype", [
-    (2, 64, 4, 8, 1, 16, 8, "float32"),
-    (2, 300, 16, 32, 4, 32, 64, "bfloat16"),
-    (2, 256, 80, 64, 1, 64, 128, "bfloat16"),      # zamba2's widths, chunk 128
-    (2, 50, 8, 64, 1, 64, 128, "bfloat16"),        # S < chunk
-    (2, 256, 24, 64, 1, 128, 256, "bfloat16"),     # N 128: chunks of 64
-    (2, 64, 8, 16, 2, 16, 8, "bfloat16"),          # smoke widths, G = 2
-])
-def test_cuda_kernel_matches_plain(B, S, H, P, G, N, Q, dtype):
-    skip_without_cuda()
-    x, dt, a, bm, cm = (torch.as_tensor(v, device="cuda")
-                        for v in _model_inputs(B, S, H, P, G, N, seed=5))
-    td = getattr(torch, dtype)
-    x, bm, cm = x.to(td), bm.to(td), cm.to(td)
-    y_k, h_k = ssd_scan_cuda(x, dt, a, bm, cm, block_q=Q)
-    y_r, h_r = ssd_scan_model_ref(x.float(), dt, a, bm.float(), cm.float())
-    torch.cuda.synchronize()
-    assert (y_k.float() - y_r.float()).abs().max().item() <= TOL[dtype]
-    assert ((h_k - h_r).abs().max() / h_r.abs().max()).item() <= 1e-3
