@@ -28,12 +28,12 @@ run in full float32: the port turns TF32 off when it resolves a CUDA device
 """
 from __future__ import annotations
 
-import threading
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
+from ..device import capture_resources
 from ..obs import trace as _trace
 
 __all__ = ["FAMILIES", "ModelFamily", "adam_train", "train_model",
@@ -418,38 +418,6 @@ class _AdamStep:
             self.k.add_(1)
 
 
-# A side stream to capture on (the legacy default stream cannot capture) and
-# one memory pool that every capture of the thread shares: a graph lives for
-# one ``adam_train`` call, and the next call's capture reuses its blocks
-# rather than allocating a pool of its own.  The pool is the one of a graph
-# of one fill captured once and never replayed: a pool whose last graph is
-# freed cannot take another capture.  So the pool lives as long as its
-# thread and keeps the segments of the largest step the thread ever
-# captured, which eager allocations cannot use.  Per thread: two captures
-# must never run at once on one stream or into one pool.
-_CAPTURE = threading.local()
-
-
-def _capture_resources(dev):
-    """(side stream, graph holding the shared pool) of this thread on ``dev``."""
-    per_dev = getattr(_CAPTURE, "per_dev", None)
-    if per_dev is None:
-        per_dev = _CAPTURE.per_dev = {}
-    key = dev.index if dev.index is not None else torch.cuda.current_device()
-    if key not in per_dev:
-        with torch.cuda.device(key):
-            side, holder = torch.cuda.Stream(), torch.cuda.CUDAGraph()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                holder.capture_begin(capture_error_mode="thread_local")
-                try:
-                    torch.zeros((1,), device=dev)
-                finally:
-                    holder.capture_end()
-        per_dev[key] = (side, holder)
-    return per_dev[key]
-
-
 def _adam_graphed(step: _AdamStep, steps: int) -> None:
     """Run ``steps`` steps of ``step``: the first eagerly on the side stream
     (a real step, and the warm-up capture needs: autograd's device thread,
@@ -458,7 +426,7 @@ def _adam_graphed(step: _AdamStep, steps: int) -> None:
     graph is freed when the call returns; launches still queued finish
     first."""
     dev = step.k.device
-    side, holder = _capture_resources(dev)
+    side, holder = capture_resources(dev)
     caller = torch.cuda.current_stream(dev)
     side.wait_stream(caller)
     graph = torch.cuda.CUDAGraph()

@@ -27,6 +27,15 @@ operations.  What differs here:
   tensors stay on the device: best-so-far tracking is ``torch.where``, and
   nothing is read back until the caller converts the result
   (DESIGN.md §5.3).
+* **Generations replayed from CUDA graphs.**  One generation is a body that
+  reads the carried state (rows, masks, counts, best so far) and returns the
+  next, writing its best fitness into the history at a device counter.  On a
+  card, from ``GEN_DST_GRAPH_MIN_GENS`` generations on and with every draw
+  made by a ``TorchDraws`` on the run's device, each generation kind runs
+  once eagerly, is then captured into a CUDA graph that updates the state's
+  buffers in place, and is replayed for one launch a generation
+  (``_GenerationGraphs``): the same operations and draws in the same order,
+  so the same search.  Elsewhere the loop runs eagerly.
 * **Batches as islands.**  ``gen_dst_batch`` runs D same-shaped datasets'
   searches as one, where the reference vmaps its jitted search: their
   tables are stacked on the row axis and their islands on the island axis,
@@ -41,7 +50,8 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
-from ..device import DeviceLike, make_generator, resolve_device
+from ..device import DeviceLike, capture_resources, make_generator, resolve_device
+from ..kernels import add_launches, launch_counts
 from ..kernels.entropy.ops import population_histogram_rows
 from ..kernels.gen_dst.ops import fused_delta_fitness
 from ..obs import trace as _trace
@@ -389,6 +399,90 @@ def _entropy_fitness(codes, B: int, f_ref, rows, cols) -> torch.Tensor:
     return fused_delta_fitness(counts, zero_codes, zero_codes, no_delta, cols, f_ref)[1]
 
 
+# From this many generations on, a search on a card replays its generations
+# from CUDA graphs; below it, the eager loop.  The capture costs about one
+# eager generation of host time and the graph's instantiation more: on an
+# H100, whole searches (to the rows on the host, medians of 15) at D1's, D6's
+# and the smallest many-models partition's tables took 11.8, 13.4 and 14.5 ms
+# graphed against 8.4, 10.5 and 10.8 eager at 2 generations; 14.9, 13.3 and
+# 13.1 against 14.8, 16.5 and 13.0 at 3; 15.5, 13.1 and 13.7 against 22.7,
+# 17.4 and 18.7 at 4; and 30.7, 29.2 and 30.2 against 130.1, 137.0 and 134.2
+# at the paper's 30.
+GEN_DST_GRAPH_MIN_GENS = 4
+
+
+def _on_cuda(d: torch.device, dev: torch.device) -> bool:
+    """Whether ``d`` is the CUDA device ``dev`` (which carries its index)."""
+    return d.type == "cuda" and (
+        d.index if d.index is not None else torch.cuda.current_device()) == dev.index
+
+
+def _graph_generators(cfg: GenDSTConfig, dev: torch.device, draws) -> Optional[list]:
+    """The generators a search's CUDA graphs register, or None where the
+    search runs the eager loop: off a card, inside another capture, for a
+    measure other than entropy (its fitness is no kernel of the port), below
+    ``GEN_DST_GRAPH_MIN_GENS`` generations, or where a draw provider is not a
+    ``TorchDraws`` whose generator is on the run's device (a capture would
+    freeze another provider's draws, or a CPU generator's, into constants)."""
+    if (dev.type != "cuda" or cfg.measure != "entropy" or cfg.psi < GEN_DST_GRAPH_MIN_GENS
+            or torch.cuda.is_current_stream_capturing()):
+        return None
+    providers = draws.providers if type(draws) is _StackedDraws else [draws]
+    gens = []
+    for p in providers:
+        if not (type(p) is TorchDraws and _on_cuda(p.device, dev) and _on_cuda(p.gen.device, dev)):
+            return None
+        if all(g is not p.gen for g in gens):
+            gens.append(p.gen)
+    return gens
+
+
+class _GenerationGraphs:
+    """The CUDA graphs of one search's generations, one per generation kind
+    (whether it crosses, whether it migrates): at most four, and one at the
+    paper's defaults.  A kind's first generation runs eagerly (``seen``
+    holds the kinds that did); its next is captured on this thread's side
+    stream into the shared pool (``device.capture_resources``) and replayed
+    on the caller's stream, as is every later one.  Each graph registers the
+    search's generators, so a replay advances them as the eager generation
+    would, and draws what it would draw.  The graphs are freed with this
+    object, when the search returns; launches still queued finish first."""
+
+    def __init__(self, dev: torch.device, generators: list):
+        self.dev, self.generators = dev, generators
+        self.side, self.holder = capture_resources(dev)
+        self.seen, self.graphs = set(), {}
+
+    def replay(self, kind, body) -> None:
+        """One generation of ``kind`` from its graph, captured from ``body``
+        first if it has none; the kernel launch counters rise by the
+        launches the graph holds."""
+        if kind not in self.graphs:
+            self.graphs[kind] = self._capture(body)
+        graph, held = self.graphs[kind]
+        graph.replay()
+        add_launches(held)
+
+    def _capture(self, body):
+        graph = torch.cuda.CUDAGraph()
+        for gen in self.generators:
+            graph.register_generator_state(gen)
+        caller = torch.cuda.current_stream(self.dev)
+        self.side.wait_stream(caller)
+        before = launch_counts()
+        with torch.cuda.stream(self.side):
+            graph.capture_begin(pool=self.holder.pool(), capture_error_mode="thread_local")
+            try:
+                body()
+            finally:
+                graph.capture_end()
+        caller.wait_stream(self.side)
+        held = {name: n - before[name] for name, n in launch_counts().items()
+                if n != before[name]}
+        add_launches({name: -n for name, n in held.items()})   # a capture launches nothing
+        return graph, held
+
+
 def _gen_dst_run(codes, values, N: int, n: int, m: int, cfg: GenDSTConfig, B: int, target: int,
                  draws):
     """The GA body for D same-shaped datasets stacked on the row axis (codes
@@ -398,8 +492,10 @@ def _gen_dst_run(codes, values, N: int, n: int, m: int, cfg: GenDSTConfig, B: in
     row indices stay in [0, N) and are offset by d*N where they read the
     table.  Returns per dataset: best rows (D, n), masks (D, M), fitness
     (D,), history (D, psi) and F(D) (D,).  Records a ``gen_dst.init`` span
-    and one ``gen_dst.generation`` span a generation (attr ``gen``): each
-    covers the issuing of its work, and nothing waits for the device."""
+    and one ``gen_dst.generation`` span a generation (attrs ``gen``, and
+    ``gen_graphed``: 1 where a graph's replay ran it, 0 where it ran
+    eagerly): each covers the issuing of its work (a capture included), and
+    nothing waits for the device."""
     M = codes.shape[1]
     D = codes.shape[0] // N
     I, phi = cfg.num_islands, cfg.phi
@@ -458,42 +554,73 @@ def _gen_dst_run(codes, values, N: int, n: int, m: int, cfg: GenDSTConfig, B: in
     op_kw = dict(N=N, M=M, n=n, m=m, p_rc=cfg.p_rc, target=target)
     k_mig = max(1, int(round(cfg.migrate_frac * phi)))
     n_drawn = phi - _n_elite(phi, cfg.alpha)
-    history = []
+    # the carried state, and each generation's best fitness written at the
+    # device counter k
+    state = [rows, cols, counts, best_f, best_r, best_c]
+    hist = torch.zeros((D, cfg.psi), dtype=best_f.dtype, device=dev)
+    k = torch.zeros((1,), dtype=torch.int64, device=dev)
+
+    def generation(cross: bool, migrate: bool) -> list:
+        """One generation from ``state``: returns the next state, and writes
+        the generation's best fitness into ``hist`` at ``k``."""
+        rows, cols, counts, best_f, best_r, best_c = state
+        g = draws.generation()
+        rows1, cols1, applied, old_vals, fresh = _mutate_core(
+            g.mutate(I, phi, N, M, n), rows, cols, xi=cfg.xi, **op_kw)
+        # which counts and delta feed the fused step: a recompute after
+        # crossover (zero delta), or the carried counts and the mutation delta
+        if cross:
+            rows2, cols2 = _crossover(g.cross(I, phi, N, M, n, m), rows1, cols1, **op_kw)
+            counts_b = pop_counts(rows2) if entropy else None
+            app = no_delta
+        elif not entropy:
+            rows2, cols2, counts_b, app = rows1, cols1, None, no_delta
+        elif cfg.incremental:
+            rows2, cols2, counts_b, app = rows1, cols1, counts, applied.to(torch.float32)
+        else:
+            rows2, cols2, counts_b, app = rows1, cols1, pop_counts(rows1), no_delta
+        counts2, fit = fitness(rows2, cols2, counts_b, app,
+                               codes[in_table(old_vals).long()], codes[in_table(fresh).long()])
+
+        f_best, r_best, c_best = best_of(fit, rows2, cols2)
+        better = f_best > best_f
+        best_f = torch.where(better, f_best, best_f)
+        best_r = torch.where(better[:, None], r_best, best_r)
+        best_c = torch.where(better[:, None], c_best, best_c)
+
+        if migrate:
+            rows2, cols2, counts2, fit = _ring_migrate(rows2, cols2, counts2, fit, k=k_mig,
+                                                       groups=D)
+
+        keep = _select_idx(fit, g.select(_selection_probs(fit), n_drawn), alpha=cfg.alpha)
+        hist.index_copy_(1, k, best_f[:, None])
+        k.add_(1)
+        return [_gather_cands(rows2, keep), _gather_cands(cols2, keep),
+                None if counts2 is None else _gather_cands(counts2, keep),
+                best_f, best_r, best_c]
+
+    def into_state(new):
+        for buf, x in zip(state, new):
+            if buf is not None:
+                buf.copy_(x)
+
+    gens = _graph_generators(cfg, dev, draws)
+    graphs = None if gens is None else _GenerationGraphs(dev, gens)
     for gen_idx in range(cfg.psi):
-        with _trace.span(None, None, "gen_dst.generation", gen=gen_idx):
-            g = draws.generation()
-            rows1, cols1, applied, old_vals, fresh = _mutate_core(
-                g.mutate(I, phi, N, M, n), rows, cols, xi=cfg.xi, **op_kw)
-            # which counts and delta feed the fused step: a recompute after
-            # crossover (zero delta), or the carried counts and the mutation delta
-            if gen_idx % cfg.cross_every == 0:
-                rows2, cols2 = _crossover(g.cross(I, phi, N, M, n, m), rows1, cols1, **op_kw)
-                counts_b = pop_counts(rows2) if entropy else None
-                app = no_delta
-            elif not entropy:
-                rows2, cols2, counts_b, app = rows1, cols1, None, no_delta
-            elif cfg.incremental:
-                rows2, cols2, counts_b, app = rows1, cols1, counts, applied.to(torch.float32)
+        kind = (gen_idx % cfg.cross_every == 0,
+                I > 1 and (gen_idx + 1) % cfg.migrate_every == 0)
+        replay = graphs is not None and kind in graphs.seen
+        with _trace.span(None, None, "gen_dst.generation", gen=gen_idx,
+                         gen_graphed=int(replay)):
+            if replay:
+                graphs.replay(kind, lambda: into_state(generation(*kind)))
+            elif graphs is None:
+                state = generation(*kind)
             else:
-                rows2, cols2, counts_b, app = rows1, cols1, pop_counts(rows1), no_delta
-            counts2, fit = fitness(rows2, cols2, counts_b, app,
-                                   codes[in_table(old_vals).long()], codes[in_table(fresh).long()])
-
-            f_best, r_best, c_best = best_of(fit, rows2, cols2)
-            better = f_best > best_f
-            best_f = torch.where(better, f_best, best_f)
-            best_r = torch.where(better[:, None], r_best, best_r)
-            best_c = torch.where(better[:, None], c_best, best_c)
-
-            if I > 1 and (gen_idx + 1) % cfg.migrate_every == 0:
-                rows2, cols2, counts2, fit = _ring_migrate(rows2, cols2, counts2, fit, k=k_mig,
-                                                           groups=D)
-
-            keep = _select_idx(fit, g.select(_selection_probs(fit), n_drawn), alpha=cfg.alpha)
-            rows, cols = _gather_cands(rows2, keep), _gather_cands(cols2, keep)
-            counts = None if counts2 is None else _gather_cands(counts2, keep)
-            history.append(best_f)
-    hist = torch.stack(history, dim=1) if history else torch.zeros((D, 0), device=dev)
+                # the graphs read and write the state's buffers in place
+                into_state(generation(*kind))
+                graphs.seen.add(kind)
+    best_f, best_r, best_c = state[3:]
     return best_r, best_c, best_f, hist, f_ref.reshape(D)
 
 

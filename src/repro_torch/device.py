@@ -1,4 +1,5 @@
-"""Device resolution for the port's entry points.
+"""Device resolution for the port's entry points, and the resources its
+CUDA graph captures share.
 
 Every entry point takes ``device=``; ``None`` means ``"cuda"``.  Asking for
 CUDA on a machine without a card raises: the port never drops to the CPU
@@ -6,11 +7,12 @@ on its own.  The CPU runs only when the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
+import threading
 from typing import Optional, Union
 
 import torch
 
-__all__ = ["resolve_device", "make_generator"]
+__all__ = ["resolve_device", "make_generator", "capture_resources"]
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -36,3 +38,36 @@ def make_generator(seed: int, device: Optional[torch.device] = None) -> torch.Ge
     gen = torch.Generator(device=device if device is not None else "cpu")
     gen.manual_seed(int(seed))
     return gen
+
+
+# A side stream to capture on (the legacy default stream cannot capture) and
+# one memory pool that every capture of the thread shares: the graphed Adam
+# steps (``automl/models.adam_train``) and the graphed Gen-DST generations
+# (``core/gen_dst``).  A graph lives for one call, and the next call's
+# capture reuses its blocks rather than allocating a pool of its own.  The
+# pool is the one of a graph of one fill captured once and never replayed: a
+# pool whose last graph is freed cannot take another capture.  So the pool
+# lives as long as its thread and keeps the segments of the largest graph
+# the thread ever captured, which eager allocations cannot use.  Per thread:
+# two captures must never run at once on one stream or into one pool.
+_CAPTURE = threading.local()
+
+
+def capture_resources(dev: torch.device):
+    """(side stream, graph holding the shared pool) of this thread on ``dev``."""
+    per_dev = getattr(_CAPTURE, "per_dev", None)
+    if per_dev is None:
+        per_dev = _CAPTURE.per_dev = {}
+    key = dev.index if dev.index is not None else torch.cuda.current_device()
+    if key not in per_dev:
+        with torch.cuda.device(key):
+            side, holder = torch.cuda.Stream(), torch.cuda.CUDAGraph()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                holder.capture_begin(capture_error_mode="thread_local")
+                try:
+                    torch.zeros((1,), device=dev)
+                finally:
+                    holder.capture_end()
+        per_dev[key] = (side, holder)
+    return per_dev[key]

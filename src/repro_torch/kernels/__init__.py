@@ -11,7 +11,7 @@ from .flash_attention import kernel as _flash_attention_kernel
 from .gen_dst import kernel as _gen_dst_kernel
 from .ssd_scan import kernel as _ssd_scan_kernel
 
-__all__ = ["GEN_DST_KERNELS", "launch_counts", "reset_launch_counts"]
+__all__ = ["GEN_DST_KERNELS", "add_launches", "launch_counts", "reset_launch_counts"]
 
 _KERNELS = {
     "masked_histogram": _entropy_kernel,
@@ -31,3 +31,11 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for mod in _KERNELS.values():
         mod.launches = 0
+
+
+def add_launches(counts: dict) -> None:
+    """Add ``counts`` (kernel name -> launches, may be negative) to the
+    counters: a CUDA graph's capture calls the wrappers, which count, but
+    launches nothing, and each replay launches what the graph holds."""
+    for name, n in counts.items():
+        _KERNELS[name].launches += n

@@ -1,9 +1,11 @@
 """The card test files stay runnable where there is no JAX.
 
 The machine with the CUDA card has no JAX, so ``tests/test_torch_*_card.py``,
-``tests/_card.py`` and every helper module of ``tests/`` that they import
-must import nothing of ``jax``, of the reference package (``repro``) or of
-``tests/_torch_port.py`` (which imports ``jax``).  Checked by parsing the
+the graph paths' files (``test_torch_adam_graph.py``,
+``test_torch_gen_dst_graph.py``), ``tests/_card.py`` and every helper
+module of ``tests/`` that they import must import nothing of ``jax``, of the
+reference package (``repro``) or of ``tests/_torch_port.py`` (which imports
+``jax``).  Checked by parsing the
 sources, without importing them.
 """
 import ast
@@ -23,7 +25,9 @@ def _imports(path):
 
 
 def test_card_files_import_no_jax_and_no_reference():
-    todo = sorted(TESTS.glob("test_torch_*_card.py")) + [TESTS / "_card.py"]
+    todo = sorted(TESTS.glob("test_torch_*_card.py")) + [
+        TESTS / name for name in ("test_torch_adam_graph.py", "test_torch_gen_dst_graph.py",
+                                  "_card.py")]
     assert len(todo) > 1
     seen, bad = set(), []
     while todo:
